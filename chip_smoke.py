@@ -2,7 +2,7 @@
 """chip_smoke.py — drive the PyTorch port of Uruv on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the full run (one card, ~minutes)
-    python3 chip_smoke.py --prefill 20000 --plans 2 --reduced 5000   # short
+    python3 chip_smoke.py --prefill 20000 --plans 2 --reduced 5000  # short
 
 Phases, one line each (any failure exits non-zero):
 
@@ -23,8 +23,31 @@ Phases, one line each (any failure exits non-zero):
                kernels and device-to-host copies per plan, top kernels
   5. cpu==cuda the same seeded plans at ``--reduced`` keys on ``cuda`` and
                on ``device="cpu"``: the two stores must be bit-equal
-  6. kernels   each kernel again at the inputs the main path gave it: exact
-               parity, its time, its plain twin's time, its bound
+  6. lifecycle a self-sizing ``Uruv(leaf_cap=16, max_leaves=32,
+               max_versions=4096)`` on cuda taken far past its pools with
+               inserts, deletes and a held snapshot: every answer against
+               the oracle, ``grows`` > 0 and ``maintain_passes`` > 0
+  7. serve     ``repro_torch.launch.serve``'s engine on cuda: llama3.2-1b at
+               full width (seeded random weights), 4 slots, max_len 512, a
+               wave of 4 requests (a shared 256-token system prompt + 32-64
+               own tokens, 32 new tokens each) and a wave of 4 follow-up
+               turns plus one fresh system-prompt request; the first
+               request goes through the flash prefill, the rest reuse a
+               cached prefix (KV copy + step-by-step decode).  Every
+               prefix-table answer against a host dict, prefix reuse >= 256
+               in the first wave's others and the follow-ups, the fresh
+               request's reuse printed (ROADMAP Queue 3 item 1), the launch
+               counts of all six kernels, the snapshot released
+  8. cpu==cuda model  llama3.2-1b at full width with 2 layers, the same
+               weights on the CPU and on cuda: prefill + 8 teacher-forced
+               decode steps; fp32 logits within atol = rtol = 1e-4, and
+               the bf16 logits no further from the CPU's fp32 logits than
+               twice as far as the CPU's own bf16 logits are
+  9. kernels   each kernel again at the widest inputs its path gave it:
+               parity with its twin (exact for the int32 store kernels;
+               attention within one bf16 ulp, atol 1e-5 + rtol 2^-7, in
+               bf16 and within 2e-5 in fp32), its time, its plain twin's
+               time, its bound and the PyTorch library call's time
 
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -50,6 +73,11 @@ WIDTH = 4096
 RANGE_SIZE = 1000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published HBM3 bandwidth
 INT32_OPS_PER_S = 67e12       # published non-tensor 32-bit rate (fp32 figure)
+BF16_TC_FLOPS = 989e12        # published dense bf16 tensor-core rate
+SYSTEM_PROMPT = 256           # serve phase: shared prompt prefix, tokens
+FP32_TOL = 1e-4               # model phase: fp32 logits, CPU vs card
+BF16_SPREAD = 2.0             # model phase: card/CPU distance of bf16 to fp32
+BF16_ULP = 2.0 ** -7          # attention: one bf16 ulp, relative, at worst
 MAIN_CFG = dict(leaf_cap=64, max_leaves=1 << 17, max_versions=1 << 22,
                 tracker_cap=128, max_chain=64, index_fanout=16)
 REDUCED_CFG = dict(leaf_cap=64, max_leaves=1 << 12, max_versions=1 << 18,
@@ -63,7 +91,15 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                        "src/repro/kernels/versioned_read/versioned_read.py:52"),
     "range_scan": ("src/repro_torch/csrc/uruv_range.cu",
                    "src/repro/kernels/uruv_range/uruv_range.py:82"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:105"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:86"),
 }
+STORE_KERNELS = ("index_descend", "leaf_slots", "versioned_read",
+                 "range_scan")
 
 
 def check(cond, msg: str) -> None:
@@ -371,12 +407,13 @@ def main_path(args, api, rng) -> dict:
         prefill_s=f"{facts['prefill_s']:.3f}",
         mixed_ops_per_s=f"{facts['n_ops'] / max(facts['apply_s'], 1e-9):.1f}",
         slow_path_rounds=stats["slow_path_rounds"],
-        device_passes=stats["device_passes"],
+        device_passes=stats["device_passes"], grows=stats["grows"],
+        maintain_passes=stats["maintain_passes"],
         n_leaves=int(db.store.n_leaves), pools_mib=f"{pool_mib:.1f}",
         max_memory_allocated_mib=(
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f}"),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
-    for name in KERNELS:
+    for name in STORE_KERNELS:
         check(counts.get(name, 0) > 0, f"kernel {name} never ran on the "
                                        "main path")
     return dict(counts=counts, calls=rec.calls, store=db.store, facts=facts,
@@ -604,6 +641,398 @@ def kernel_report(main) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the self-sizing store lifecycle on the card
+# ---------------------------------------------------------------------------
+
+def lifecycle_phase(api, rng) -> None:
+    """A tiny self-sizing store taken far past its pools: inserts, deletes
+    and a held snapshot, every answer against a dict oracle."""
+    from repro_torch.core import store as S
+
+    db = api.Uruv(api.UruvConfig(leaf_cap=16, max_leaves=32,
+                                 max_versions=1 << 12))
+    want = {}
+    keys = rng.choice(1 << 20, 20_000, replace=False).astype(np.int32)
+    held = held_want = None
+    for i in range(0, len(keys), 1000):
+        k = keys[i:i + 1000]
+        res = db.insert(k, k % 977 + 1)
+        check(np.all(res.values == api.NOT_FOUND), "lifecycle: insert")
+        want.update(zip(k.tolist(), (k % 977 + 1).tolist()))
+        if i == 8000:
+            held = db.acquire_snapshot()
+            held_want = dict(want)
+        dead = k[rng.random(len(k)) < 0.6]
+        res = db.delete(dead)
+        check(np.array_equal(res.values, [want.pop(int(x)) for x in dead]),
+              "lifecycle: delete")
+    probe = keys[::7]
+    got = db.lookup(probe, held)
+    check(np.array_equal(got, [held_want.get(int(x), api.NOT_FOUND)
+                               for x in probe]), "lifecycle: held snapshot")
+    db.release_snapshot(held)
+    S.check_invariants(db.store)
+    check(db.live_items() == sorted(want.items()), "lifecycle: live_items")
+    st = db.stats
+    check(st["grows"] > 0 and st["maintain_passes"] > 0,
+          f"lifecycle: grows={st['grows']} "
+          f"maintain_passes={st['maintain_passes']}")
+    say("lifecycle", keys=len(keys), live=len(want), grows=st["grows"],
+        maintain_passes=st["maintain_passes"],
+        leaves_reclaimed=st["leaves_reclaimed"],
+        max_leaves=db.capacity.max_leaves,
+        max_versions=db.capacity.max_versions, result="exact")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving engine, llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+class AttnRecorder:
+    """Keeps the inputs of the widest flash / decode attention call the
+    model made (wrapping the names ``repro_torch.models.common`` calls)."""
+
+    def __init__(self, common):
+        self.common = common
+        self.orig = {"flash_attention": common.attention,
+                     "decode_attention": common.decode}
+        self.calls = {}
+
+    def __enter__(self):
+        self.common.attention = self._wrap("flash_attention",
+                                           self.orig["flash_attention"])
+        self.common.decode = self._wrap("decode_attention",
+                                        self.orig["decode_attention"])
+        return self
+
+    def __exit__(self, *exc):
+        self.common.attention = self.orig["flash_attention"]
+        self.common.decode = self.orig["decode_attention"]
+
+    def _wrap(self, name, fn):
+        def rec(*args, **kw):
+            width = args[0].numel() * args[1].shape[-2]
+            if width >= self.calls.get(name, (0,))[0]:
+                self.calls[name] = (width, args, kw)
+            return fn(*args, **kw)
+        return rec
+
+
+def serve_phase(args, rng) -> dict:
+    """Two waves of requests through the engine; the prefix table's every
+    answer is held against a host dict replay of the engine's plans."""
+    import repro_torch.api as api
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serve.build_engine("llama3_2_1b", seed=args.seed, slots=4,
+                             max_len=512, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    plans = []
+    submit = eng.coalescer.submit
+
+    def logged(plan):
+        fut = submit(plan)
+        plans.append((plan, fut))
+        return fut
+    eng.coalescer.submit = logged
+
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, out):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+            return r
+        return run
+    orig_prefill = transformer.prefill
+    transformer.prefill = timed(orig_prefill, prefill_ms)
+    eng._decode = timed(eng._decode, decode_ms)
+
+    # wave 1: four conversations sharing the system prompt; the first
+    # goes through prefill, the others copy its 256 cached rows.  wave 2:
+    # follow-up turns of conversations 1-3 (each lands in another slot
+    # than its first turn), a follow-up of the first of them, and one
+    # fresh request on the system prompt.  A follow-up finds its donor
+    # through the conversation's own prefix keys.  The fresh request
+    # shows the engine's known fault (ROADMAP Queue 3 item 1): re-admitting
+    # a slot retires every prefix key that slot published, the shared
+    # system-prompt keys included, so it finds no donor; its reuse is
+    # printed, not gated, and reads 256 once the fault is fixed.
+    system = rng.integers(0, cfg.vocab, SYSTEM_PROMPT).tolist()
+
+    def turn(prefix):
+        return prefix + rng.integers(
+            0, cfg.vocab, int(rng.integers(32, 65))).tolist()
+    first = [turn(system) for _ in range(4)]
+    second = [turn(first[1]), turn(first[2]), turn(first[3])]
+    second.append(turn(second[0]))
+    second.append(turn(system))
+    waves = [[serve.Request(rid=w * 4 + i, prompt=p, max_new=32)
+              for i, p in enumerate(prompts)]
+             for w, prompts in enumerate((first, second))]
+    follow_ups, fresh = waves[1][:4], waves[1][4]
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with AttnRecorder(common) as rec:
+            for wave in waves:
+                eng.run(wave)
+            view = eng.snapshot_view()
+        torch.cuda.synchronize()
+    finally:
+        transformer.prefill = orig_prefill
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+
+    # the prefix table against a host dict replay of the engine's plans
+    table = {}
+    for plan, fut in plans:
+        want = []
+        for c, k, v in zip(plan.codes.tolist(), plan.keys.tolist(),
+                           plan.values.tolist()):
+            if c == api.OP_INSERT:
+                want.append(table.get(k, api.NOT_FOUND))
+                table[k] = v
+            elif c == api.OP_DELETE:
+                want.append(table.pop(k, api.NOT_FOUND))
+            elif c == api.OP_SEARCH:
+                want.append(table.get(k, api.NOT_FOUND))
+            else:
+                want.append(api.NOT_FOUND)
+        check(np.array_equal(fut.result().values, want),
+              "serve: a prefix-table answer differs from the host dict")
+    check(view == sorted(table.items()), "serve: snapshot_view differs "
+                                         "from the host dict")
+    check(eng.table.active_snapshots == 0, "serve: snapshot not released")
+    reqs = waves[0] + waves[1]
+    check(all(r.done and len(r.out) == 32 for r in reqs),
+          "serve: a request did not finish")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "serve: a token outside the vocabulary")
+    check(waves[0][0].prefix_reused == 0 and len(prefill_ms) >= 1,
+          "serve: the first request did not go through prefill")
+    check(all(r.prefix_reused >= SYSTEM_PROMPT for r in waves[0][1:]),
+          "serve: a first-wave request did not reuse the system prompt")
+    check(all(r.prefix_reused >= SYSTEM_PROMPT for r in follow_ups),
+          "serve: a follow-up turn did not reuse the system prompt: "
+          + str([r.prefix_reused for r in follow_ups]))
+    for name in KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the serve path")
+    new_tokens = sum(len(r.out) for r in reqs)
+    stats = eng.table_stats
+    say("serve", model=cfg.name, layers=cfg.n_layers, d=cfg.d_model,
+        vocab=cfg.vocab, requests=len(reqs), build_s=f"{build_s:.3f}",
+        wall_s=f"{wall_s:.3f}", new_tokens=new_tokens,
+        tokens_per_s=f"{new_tokens / wall_s:.2f}",
+        prefills=len(prefill_ms),
+        prefill_ms_per_prompt=f"{np.mean(prefill_ms):.3f}",
+        decode_calls=len(decode_ms),
+        decode_ms_per_tick=f"{np.mean(decode_ms):.3f}",
+        reused=json.dumps([r.prefix_reused for r in reqs]).replace(" ", ""),
+        fresh_reused=fresh.prefix_reused,
+        fresh_fault=("ROADMAP-Queue3-item1" if fresh.prefix_reused
+                     < SYSTEM_PROMPT else "fixed"),
+        max_memory_allocated_mib=(
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f}"),
+        table_entries=len(view),
+        table_stats=json.dumps(stats, sort_keys=True).replace(" ", ""),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    return dict(counts=counts, calls=rec.calls)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the model on the CPU and on the card, same weights
+# ---------------------------------------------------------------------------
+
+def model_cpu_equals_cuda(args) -> None:
+    """llama3.2-1b at full width, 2 layers: prefill + 8 teacher-forced
+    decode steps on both devices from the same weights.
+
+    fp32 (compute and KV cache) holds the algorithm: CPU and card agree
+    within atol = rtol = ``FP32_TOL``.  bf16, the serving dtype, is held
+    against a bound read from the run itself: the card's bf16 logits may
+    stand at most ``BF16_SPREAD`` times as far from the CPU's fp32 logits
+    as the CPU's own bf16 logits do, so a fault in the card's bf16 path
+    fails while the two devices' different bf16 roundings pass."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as TT
+
+    base = dataclasses.replace(get_arch("llama3_2_1b"), n_layers=2)
+    params = TT.init(base, torch.Generator().manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed + 2)
+    toks = rng.integers(0, base.vocab, (2, 24)).astype(np.int32)
+    S0, Smax = 16, 32
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    def logits_on(cfg, dev):
+        cache_dtype = (torch.float32 if cfg.compute_dtype == "float32"
+                       else torch.bfloat16)
+        p = to(params, dev)
+        logits, cache = TT.prefill(cfg, p, toks[:, :S0], Smax, cache_dtype)
+        steps = [logits[:, -1]]
+        lens = np.full(2, S0, np.int32)
+        for t in range(S0, S0 + 8):
+            lg, cache = TT.decode_step(cfg, p, toks[:, t], cache, lens)
+            lens += 1
+            steps.append(lg)
+        return torch.stack(steps).float().cpu().numpy()
+
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=cdt)
+        for dev in ("cpu", "cuda"):
+            out[cdt, dev] = logits_on(cfg, dev)
+            check(np.isfinite(out[cdt, dev]).all(),
+                  f"cpu==cuda model: non-finite {cdt} logits on {dev}")
+    ref = out["float32", "cpu"]
+    err32 = float(np.abs(out["float32", "cuda"] - ref).max())
+    check(np.allclose(out["float32", "cuda"], ref, atol=FP32_TOL,
+                      rtol=FP32_TOL),
+          f"cpu==cuda model: fp32 logits differ (max abs {err32:.3e})")
+    spread_cpu = float(np.abs(out["bfloat16", "cpu"] - ref).max())
+    spread_cuda = float(np.abs(out["bfloat16", "cuda"] - ref).max())
+    check(spread_cuda <= BF16_SPREAD * spread_cpu,
+          f"cpu==cuda model: the card's bf16 logits stand {spread_cuda:.3e} "
+          f"from fp32, more than {BF16_SPREAD}x the CPU's {spread_cpu:.3e}")
+    err16 = float(np.abs(out["bfloat16", "cuda"]
+                         - out["bfloat16", "cpu"]).max())
+    say("cpu==cuda-model", model=base.name, layers=base.n_layers,
+        logits=ref.size, max_abs_err_fp32=f"{err32:.3e}",
+        gate_fp32=f"atol=rtol={FP32_TOL}",
+        bf16_cpu_from_fp32=f"{spread_cpu:.3e}",
+        bf16_cuda_from_fp32=f"{spread_cuda:.3e}",
+        gate_bf16=f"cuda<={BF16_SPREAD}x_cpu",
+        max_abs_err_bf16=f"{err16:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9 (attention): the two attention kernels at the serve path's inputs
+# ---------------------------------------------------------------------------
+
+def attention_report(serve) -> list:
+    """The two attention kernels at the widest inputs the serve path gave
+    them; ``library_ms`` is one ``scaled_dot_product_attention`` call on
+    the same inputs (GQA, and for decode q as one row with a length
+    mask)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rows = []
+    for name in ("flash_attention", "decode_attention"):
+        _, a, kw = serve["calls"][name]
+        if name == "flash_attention":
+            q, k, v = (t.contiguous() for t in a)
+            causal, window = kw.get("causal", True), kw.get("window", 0)
+
+            def run(q=q, k=k, v=v):
+                return flash_attention(q, k, v, causal=causal, window=window)
+
+            def plain(q=q, k=k, v=v):
+                return attention_ref(q, k, v, causal=causal, window=window)
+            B, H, Sq, D = q.shape
+            KVH, Skv = k.shape[1], k.shape[2]
+            qi = torch.arange(Sq)[:, None]
+            ki = torch.arange(Skv)[None, :]
+            ok = torch.ones(Sq, Skv, dtype=torch.bool)
+            if causal:
+                ok &= qi >= ki
+            if window > 0:
+                ok &= qi - ki < window
+            pairs = int(ok.sum()) * B * H
+            nbytes = (q.numel() * 2 + k.numel() + v.numel()) \
+                * q.element_size()
+            shape = f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D}"
+
+            def lib(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            q, k, v, lens = (t.contiguous() for t in a)
+
+            def run(q=q, k=k, v=v, lens=lens):
+                return decode_attention(q, k, v, lens)
+
+            def plain(q=q, k=k, v=v, lens=lens):
+                return decode_attention_ref(q, k, v, lens)
+            B, H, D = q.shape
+            KVH, S = k.shape[1], k.shape[2]
+            n_rows = int(lens.clamp(0, S).sum())
+            pairs = n_rows * H
+            nbytes = (2 * q.numel() + 2 * n_rows * KVH * D) \
+                * q.element_size() + 4 * B + 8 * B * H
+            shape = f"B={B},H={H},KVH={KVH},S={S},D={D}"
+            mask = (torch.arange(S, device=q.device)[None, :]
+                    < lens[:, None])[:, None, None, :]
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        got, want = run(), plain()
+        err = float((got.float() - want.float()).abs().max())
+        # both round the same fp32 result to q's dtype: in bf16 they may
+        # part by one rounding step, in fp32 by summation order only
+        atol, rtol = ((1e-5, BF16_ULP) if q.dtype == torch.bfloat16
+                      else (2e-5, 2e-5))
+        check(torch.allclose(got.float(), want.float(), atol=atol,
+                             rtol=rtol),
+              f"{name} != plain at the serve path's inputs (max abs {err})")
+        # the same inputs in fp32 hold the fp32 tolerance
+        a32 = [t.float() if t.is_floating_point() else t
+               for t in (q, k, v) + (() if name == "flash_attention"
+                                     else (lens,))]
+        if name == "flash_attention":
+            g32 = flash_attention(*a32, causal=causal, window=window)
+            w32 = attention_ref(*a32, causal=causal, window=window)
+        else:
+            g32, w32 = decode_attention(*a32), decode_attention_ref(*a32)
+        err32 = float((g32 - w32).abs().max())
+        check(torch.allclose(g32, w32, atol=2e-5, rtol=2e-5),
+              f"{name} != plain in fp32 (max abs {err32})")
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, iters=5)
+        library_ms = time_ms(lib)
+        flops = 4 * pairs * D
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_TC_FLOPS * 1e3
+        src, replaces = KERNELS[name]
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=serve["counts"].get(name, 0), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            library_ms=library_ms))
+        say("kernel", name=name, shape=shape, dtype=str(q.dtype),
+            ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
+            library_ms=f"{library_ms:.5f}", max_abs_err=f"{err:.3e}",
+            max_abs_err_fp32=f"{err32:.3e}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -620,6 +1049,9 @@ def main() -> int:
     import repro_torch.api as api
     from repro_torch.kernels import _build
 
+    # fp32 products in full fp32 (the reference's precision), no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     card = probe()
     secs = _build.build()
@@ -630,7 +1062,10 @@ def main() -> int:
     main_res = main_path(args, api, rng)
     profile_plans(main_res.pop("db"), api, rng)
     cpu_equals_cuda(args, api)
-    rows = kernel_report(main_res)
+    lifecycle_phase(api, rng)
+    serve_res = serve_phase(args, rng)
+    model_cpu_equals_cuda(args)
+    rows = kernel_report(main_res) + attention_report(serve_res)
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

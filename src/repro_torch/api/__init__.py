@@ -5,13 +5,16 @@
   * :class:`Result`   — per-op values + found mask + timestamps + complete
     range pages and resume frontiers.
   * :class:`Uruv`     — the client: ``apply(batch)``, convenience verbs,
-    ``snapshot()``, ``range``/``range_all``/``range_page``/``scan_page``,
-    ``compact()``, ``reindex()``.  It runs on ``cuda`` unless given
-    ``device="cpu"``.
+    the pipelined ``apply_nowait``/``confirm``, ``snapshot()``,
+    ``range``/``range_all``/``range_page``/``scan_page``, ``compact()``,
+    ``reindex()``, ``maintain()``, ``grow()``.  It runs on ``cuda``
+    unless given ``device="cpu"``.
+  * :class:`PendingPlan` — a dispatched, unconfirmed plan.
   * :class:`LocalExecutor` — the single-device execution backend.
-  * :class:`LifecyclePolicy` — only the fixed-footprint policy
-    (``auto_grow=False, auto_maintain=False``) runs in the port; it is
-    the default here, and ``CapacityError`` is its contract.
+  * :class:`LifecyclePolicy` — the store lifecycle; the default is
+    self-sizing (pools grow, maintenance interleaves), and
+    :data:`FIXED_FOOTPRINT` keeps the configured pools with
+    ``CapacityError`` as its contract.
 """
 
 from repro_torch.core.batch import CapacityError
@@ -25,6 +28,7 @@ from repro_torch.api.client import Uruv
 from repro_torch.api.executors import (
     FIXED_FOOTPRINT, LifecyclePolicy, LocalExecutor, RangeOptions,
 )
+from repro_torch.api.futures import PendingPlan
 from repro_torch.api.opbatch import (
     OpBatch, RangePage, Result, make_result, pow2_width,
 )
@@ -43,6 +47,7 @@ __all__ = [
     "OP_RANGE",
     "OP_SEARCH",
     "OpBatch",
+    "PendingPlan",
     "RangeOptions",
     "RangePage",
     "Result",

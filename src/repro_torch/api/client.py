@@ -13,6 +13,9 @@
 The client holds the current store (every earlier store stays a valid
 frozen snapshot: passes never write into their inputs) and adds the
 announce-order timestamp accounting and the snapshot-tracker hygiene.
+The store is self-sizing by default (pools grow on pressure, bounded
+``maintain`` passes reclaim retired leaves); the pipelined verbs
+``apply_nowait`` / ``confirm`` serve ``repro_torch.serve.coalescer``.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import store as _store
-from repro_torch.core.ref import KEY_MAX
+from repro_torch.core.ref import KEY_MAX, OP_RANGE
 from repro_torch.api.executors import (
     LifecyclePolicy, LocalExecutor, RangeOptions,
 )
+from repro_torch.api.futures import PendingPlan
 from repro_torch.api.opbatch import (
     OpBatch, RangePage, Result, make_result, pow2_width,
 )
@@ -36,11 +40,14 @@ class Uruv:
     """Stateful client over an immutable store + a single-device executor.
 
     Runs on ``device`` (default ``cuda``; raises when CUDA is absent,
-    ``device="cpu"`` gives the plain PyTorch path).  The store keeps a
-    fixed footprint in the port: ``policy`` must be
-    ``LifecyclePolicy(auto_grow=False, auto_maintain=False)`` (the
-    default here), and a working set beyond the configured pools raises
-    ``CapacityError``.
+    ``device="cpu"`` gives the plain PyTorch path).  The store is
+    SELF-SIZING by default: capacity pressure grows the flagged pool
+    (power-of-two doubling, bit-exact) and incremental ``maintain``
+    passes reclaim retired leaves when the dead fraction crosses the
+    policy trigger, so a client made with a small ``UruvConfig`` serves a
+    large working set without ``CapacityError``.  Pass
+    ``policy=LifecyclePolicy(auto_grow=False, auto_maintain=False)``
+    (``FIXED_FOOTPRINT``) to keep the configured pools.
     """
 
     def __init__(self, config: Optional[_store.UruvConfig] = None, *,
@@ -65,7 +72,8 @@ class Uruv:
     @property
     def stats(self):
         """Executor counters (``device_passes`` / ``slow_path_rounds`` /
-        ``compactions``) plus the store's index counters
+        ``compactions`` / ``grows`` / ``maintain_passes`` /
+        ``leaves_reclaimed``) plus the store's index counters
         ``index_delta_passes`` and ``index_propagations``."""
         s = dict(self.executor.stats)
         s["index_delta_passes"] = int(self._store.index.stat_delta_passes)
@@ -73,9 +81,26 @@ class Uruv:
         return s
 
     @property
+    def capacity(self):
+        """The LIVE capacities (``store.cfg``): they move as the store
+        grows; the construction-time config keeps the initial sizes."""
+        return self._store.cfg
+
+    @property
     def ts(self) -> int:
         """The global clock (the paper's FAA counter)."""
         return self.executor.ts(self._store)
+
+    @property
+    def active_snapshots(self) -> int:
+        """Registered-and-unreleased snapshots in the version tracker."""
+        return int(self._store.trk_active.sum())
+
+    def sync_durable(self) -> None:
+        """Close the group-commit window of an attached durability log; a
+        no-op here, since no durability is attached to a port client
+        (a volatile client, as in the JAX package without
+        ``durable_dir``)."""
 
     # ----------------------------------------------------------------- write
     def apply(self, batch: OpBatch, *, light_path: bool = True,
@@ -95,6 +120,57 @@ class Uruv:
         self._store, values, range_items = self.executor.apply(
             self._store, batch, light_path=light_path, range_opts=range_opts)
         return make_result(values[:n], batch.codes[:n], base, range_items)
+
+    # ------------------------------------------------- pipelined (deferred)
+    def apply_nowait(self, batch: OpBatch, *, pad_to_pow2: bool = False,
+                     donate_store: bool = False) -> PendingPlan:
+        """Dispatch a CRUD-only plan and return a :class:`PendingPlan`; the
+        client adopts the speculative store so the next plan can go out
+        behind it.  Settle with :meth:`confirm` IN DISPATCH ORDER before
+        any synchronous verb.  RANGE plans take :meth:`apply`.
+
+        ``donate_store`` is accepted for the JAX signature and changes no
+        result (a port pass never writes into its input store); it drops
+        the held pre-plan reference, as donation does there.
+        """
+        n = len(batch)
+        if n == 0:
+            raise ValueError("apply_nowait requires a non-empty plan")
+        codes = np.asarray(batch.codes)
+        if bool((codes == OP_RANGE).any()):
+            raise ValueError(
+                "apply_nowait is CRUD-only; RANGE plans take apply()")
+        host = OpBatch(codes, np.asarray(batch.keys),
+                       np.asarray(batch.values))
+        if pad_to_pow2:
+            host = host.pad_to(pow2_width(n))
+        store_before = self._store
+        self._store, values, ok = self.executor.apply_nowait(
+            self._store, host, donate_store=donate_store)
+        return PendingPlan(
+            batch=host, n_user=n,
+            store_before=None if donate_store else store_before,
+            store_after=self._store, values=values, ok=ok)
+
+    def confirm(self, pending: PendingPlan) -> Optional[Result]:
+        """Settle one :meth:`apply_nowait` dispatch.  On acceptance returns
+        the plan's :class:`Result` (sliced back to the caller's
+        pre-padding width); on rejection rolls the client back to the
+        pre-plan store and returns ``None`` — the caller replays
+        ``pending.batch`` (and every later unconfirmed plan) through
+        :meth:`apply`, which re-derives the same announce timestamps."""
+        if not pending.ok:
+            self._store = pending.rollback_store()
+            return None
+        base = int(pending.store_after.ts) - len(pending.batch)
+        values = pending.values.cpu().numpy()[:pending.n_user]
+        return make_result(values, pending.batch.codes[:pending.n_user],
+                           base, ())
+
+    def lifecycle_tick(self) -> None:
+        """Run the policy's proactive grow/maintain triggers now (the
+        pipelined front end calls this between plans)."""
+        self._store = self.executor.lifecycle_tick(self._store)
 
     def insert(self, keys, values) -> Result:
         """Batched INSERT; ``Result.values`` holds the previous values."""
@@ -201,6 +277,23 @@ class Uruv:
         """Repack the fat-node index at pack_fill occupancy; every result
         is byte-identical before and after."""
         self._store = self.executor.reindex(self._store)
+
+    # ------------------------------------------------------------- lifecycle
+    def maintain(self, budget: Optional[int] = None, *,
+                 phase: int = 0) -> Tuple[int, int]:
+        """ONE bounded incremental maintenance pass: purge tracker-dead
+        keys, merge underfull neighbours, reclaim up to ``budget`` retired
+        leaf slots.  Returns ``(leaves_reclaimed, pairs_merged)``; results
+        at every registered snapshot are unchanged."""
+        self._store, reclaimed, merged = self.executor.maintain(
+            self._store, budget, phase=phase)
+        return reclaimed, merged
+
+    def grow(self, *, leaves: bool = False, versions: bool = False,
+             tracker: bool = False) -> None:
+        """Double the selected pools now (bit-exact)."""
+        self._store = self.executor.grow(
+            self._store, leaves=leaves, versions=versions, tracker=tracker)
 
     # ------------------------------------------------------------ inspection
     def live_items(self) -> List[Tuple[int, int]]:

@@ -5,19 +5,22 @@ ADT surface.  The contract mirrors the JAX package's executors:
 
   * ``create()``                        -> a fresh store
   * ``apply(store, batch, ...)``        -> (store, values[P], range_items)
+  * ``apply_nowait(store, batch)``      -> (store, values, ok), one pass
   * ``lookup(store, keys, snap_ts)``    -> values (read-only, no clock)
   * ``range_page`` / ``scan_page``      -> RangePage (one bounded pass)
   * ``range_all``                       -> complete per-query page lists
   * ``snapshot / release / compact / reindex / ts``
+  * ``grow / maintain / lifecycle_tick`` — the store lifecycle
 
-``stats`` counts ``device_passes``, ``slow_path_rounds`` and
-``compactions``.
+``stats`` counts ``device_passes``, ``slow_path_rounds``,
+``compactions`` and the lifecycle trio ``grows`` / ``maintain_passes`` /
+``leaves_reclaimed``.
 
-The port runs the fixed-footprint policy only: the pools keep their
-configured sizes, and a store that cannot fit the working set raises
-``CapacityError``.  Self-sizing (pool growth and incremental maintenance,
-the JAX package's default) waits for the port of ``core/lifecycle.py``
-(ROADMAP); a policy that asks for it raises ``NotImplementedError``.
+The store is self-sizing by default (``LifecyclePolicy()``, as in the
+JAX client): capacity pressure grows the rejected pool and bounded
+``maintain`` passes run when the dead fraction of the leaf pool crosses
+the trigger.  :data:`FIXED_FOOTPRINT` keeps the configured pools, and a
+store that cannot fit the working set raises ``CapacityError``.
 """
 
 from __future__ import annotations
@@ -29,37 +32,20 @@ import numpy as np
 import torch
 
 from repro_torch.core import batch as _batch
+from repro_torch.core import lifecycle as _lifecycle
 from repro_torch.core import store as _store
 from repro_torch.api.opbatch import OpBatch, RangePage
 
 CapacityError = _batch.CapacityError
 
 
-@dataclasses.dataclass(frozen=True)
-class LifecyclePolicy:
-    """Host-side lifecycle policy (the JAX package's fields and defaults).
-
-    The port accepts only ``auto_grow=False, auto_maintain=False``
-    (:data:`FIXED_FOOTPRINT`); the other fields are for the port of
-    ``core/lifecycle.py``.
-    """
-
-    auto_grow: bool = True          # grow pools on OFLOW instead of raising
-    auto_maintain: bool = True      # interleave maintain() after applies
-    maintain_budget: int = 128      # leaf pairs + relocations per pass
-    maintain_passes: int = 2        # max passes per interleaved trigger
-    frozen_trigger: float = 0.25    # dead fraction of n_alloc that triggers
-    min_dead_leaves: int = 32       # ignore dead fractions of tiny pools
-    grow_occupancy: float = 0.9     # proactive: grow before the wall
-    version_gc_fraction: float = 0.5  # compact() before growing versions
-    pressure_passes: int = 64       # maintain burst bound under OFLOW_LEAVES
-
-
+LifecyclePolicy = _lifecycle.LifecyclePolicy
 FIXED_FOOTPRINT = LifecyclePolicy(auto_grow=False, auto_maintain=False)
 
 
 def _new_stats():
-    return {"device_passes": 0, "slow_path_rounds": 0, "compactions": 0}
+    return {"device_passes": 0, "slow_path_rounds": 0, "compactions": 0,
+            "grows": 0, "maintain_passes": 0, "leaves_reclaimed": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,19 +59,21 @@ class RangeOptions:
 
 class LocalExecutor:
     """Single-device execution over ``repro_torch.core.store`` /
-    ``core.batch`` on ``device`` (default ``cuda``; raises without it)."""
+    ``core.batch`` on ``device`` (default ``cuda``; raises without it).
+
+    ``policy`` is the store lifecycle: the default self-sizing policy
+    grows the rejected pool on capacity overflow and interleaves bounded
+    ``maintain`` passes; :data:`FIXED_FOOTPRINT` keeps the configured
+    pools.  The live capacities are ``store.cfg``; ``config`` keeps the
+    initial sizes once the store has grown.
+    """
 
     def __init__(self, config: Optional[_store.UruvConfig] = None, *,
                  device=None, policy: Optional[LifecyclePolicy] = None):
-        policy = FIXED_FOOTPRINT if policy is None else policy
-        if policy.auto_grow or policy.auto_maintain:
-            raise NotImplementedError(
-                "self-sizing stores (auto_grow / auto_maintain) come with "
-                "the port of core/lifecycle.py (see ROADMAP.md); use "
-                "LifecyclePolicy(auto_grow=False, auto_maintain=False)")
         self.config = config or _store.UruvConfig()
         self.device = _store.resolve_device(device)
-        self.policy = policy
+        self.policy = policy if policy is not None \
+            else _lifecycle.DEFAULT_POLICY
         self.stats = _new_stats()
 
     def create(self):
@@ -93,6 +81,32 @@ class LocalExecutor:
 
     def ts(self, store) -> int:
         return int(store.ts)
+
+    # ------------------------------------------------------------- lifecycle
+    def grow(self, store, *, leaves: bool = False, versions: bool = False,
+             tracker: bool = False):
+        self.stats["grows"] += 1
+        return _lifecycle.grow(store, leaves=leaves, versions=versions,
+                               tracker=tracker)
+
+    def maintain(self, store, budget: Optional[int] = None, *,
+                 phase: int = 0):
+        store, reclaimed, merged = _lifecycle.maintain(
+            store,
+            budget if budget is not None else self.policy.maintain_budget,
+            phase=phase)
+        self.stats["maintain_passes"] += 1
+        self.stats["leaves_reclaimed"] += reclaimed
+        return store, reclaimed, merged
+
+    def lifecycle_tick(self, store):
+        """The post-apply lifecycle interleave: a bounded maintain burst on
+        the frozen-fraction trigger, then proactive growth ahead of the
+        allocator wall (both policy-gated; results are unaffected).  The
+        serving pipeline calls it between plans."""
+        return _lifecycle.lifecycle_tick(
+            store, self.policy, stats=self.stats,
+            grow_fn=lambda st: self.grow(st, leaves=True))
 
     # ----------------------------------------------------------------- write
     def apply(self, store, batch: OpBatch, *, light_path: bool = True,
@@ -102,10 +116,27 @@ class LocalExecutor:
             light_path=light_path, max_results=range_opts.max_results,
             scan_leaves=range_opts.scan_leaves,
             max_rounds=range_opts.max_rounds, stats=self.stats,
+            policy=self.policy,
         )
+        store = self.lifecycle_tick(store)
         k2 = np.asarray(batch.values)
         range_items = [(pos, page, int(k2[pos])) for pos, page in range_pages]
         return store, values, range_items
+
+    def apply_nowait(self, store, batch: OpBatch, *,
+                     donate_store: bool = False):
+        """ONE fast-path pass for a CRUD-only plan: ``(store, values,
+        ok)``.  Rejection handling (slow path, lifecycle) is the caller's,
+        through ``Uruv.confirm`` and a replay via :meth:`apply`.
+
+        ``ok`` is already a host bool here: the port's ``bulk_apply``
+        reads its overflow flags on the host (ROADMAP: the sync-free
+        pass).  ``donate_store`` is accepted and changes nothing, since a
+        pass never writes into its input tensors.
+        """
+        self.stats["device_passes"] += 1
+        return _store.bulk_apply(store, batch.codes, batch.keys,
+                                 batch.values)
 
     # ------------------------------------------------------------------ read
     def lookup(self, store, keys, snap_ts):
@@ -151,6 +182,11 @@ class LocalExecutor:
 
     # --------------------------------------------------------- snapshots, GC
     def snapshot(self, store):
+        # proactive tracker growth: a full ring would silently drop the
+        # registration (OFLOW_TRACKER) — grow it first instead
+        if (self.policy.auto_grow
+                and int(store.trk_active.sum()) >= store.cfg.tracker_cap):
+            store = self.grow(store, tracker=True)
         store, ts = _store.snapshot(store)
         return store, int(ts)
 

@@ -8,9 +8,12 @@ re-applying at the ORIGINAL per-op timestamps, so the linearization is
 bit-identical to the one-pass application.  RANGE ops segment the array
 and are answered completely by ``bulk_range_all``.
 
-The port runs under the fixed-footprint policy only (no pool growth):
-a store that cannot fit the working set even after compaction raises
-:class:`CapacityError`.
+Capacity pressure follows the lifecycle policy: under a self-sizing
+policy (``auto_grow``, the client's default) a full pool is relieved by
+``lifecycle.relieve_pressure`` (maintenance, pool doubling or a gated
+compaction) and the pass retried; with ``policy=None`` or
+``auto_grow=False`` a store that cannot fit the working set even after
+compaction raises :class:`CapacityError`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import lifecycle as LC
 from repro_torch.core import store as S
 from repro_torch.core.ref import KEY_MAX, KEY_MIN, NOT_FOUND, OP_RANGE
 
@@ -77,6 +81,7 @@ def _apply_rounds(
     *,
     light_path: bool = True,
     stats: Optional[Dict[str, int]] = None,
+    policy: Optional[LC.LifecyclePolicy] = None,
     _depth: int = 0,
 ) -> Tuple[S.UruvStore, np.ndarray]:
     """One fast-path attempt + bounded help-rounds on rejection.
@@ -86,6 +91,13 @@ def _apply_rounds(
     slices them, so every round applies its ops at exactly the timestamps
     the one-pass application would have used.  ``stats`` counts every
     pass and slow-path round.
+
+    Capacity policy: with a ``policy`` whose ``auto_grow`` is set,
+    ``OFLOW_LEAVES`` / ``OFLOW_VERSIONS`` rejections run one
+    ``lifecycle.relieve_pressure`` step and retry at the same timestamps;
+    ``policy=None`` keeps the fixed footprint (compact-then-retry, error
+    when compaction frees nothing).  Lifecycle choices never change
+    results or timestamps, only where the arrays live.
     """
     if _depth > MAX_SLOWPATH_ROUNDS:
         raise CapacityError("slow path failed to converge; store too small",
@@ -98,7 +110,8 @@ def _apply_rounds(
         return new_store, res.cpu().numpy()
     _bump(stats, "slow_path_rounds")
     reason = int(new_store.oflow) & ~int(store.oflow)
-    again = dict(light_path=light_path, stats=stats, _depth=_depth + 1)
+    again = dict(light_path=light_path, stats=stats, policy=policy,
+                 _depth=_depth + 1)
     if reason & S.OFLOW_INDEX:
         # fat-node pools fragmented (or root overflow): repack, then retry
         # at the SAME timestamps — results unchanged
@@ -106,6 +119,11 @@ def _apply_rounds(
         return _apply_rounds(S.reindex(_clear_oflow(store)), codes, keys,
                              values, op_ts, next_ts, **again)
     if reason & (S.OFLOW_VERSIONS | S.OFLOW_LEAVES):
+        if policy is not None and policy.auto_grow:
+            relieved = LC.relieve_pressure(_clear_oflow(store), reason,
+                                           len(keys), policy, stats=stats)
+            return _apply_rounds(relieved, codes, keys, values, op_ts,
+                                 next_ts, **again)
         _bump(stats, "compactions")
         compacted, _ = S.compact(_clear_oflow(store))
         # progress check on the constrained resources: the version pool
@@ -151,6 +169,7 @@ def apply_mixed(
     scan_leaves: int = 16,
     max_rounds: int = 8,
     stats: Optional[Dict[str, int]] = None,
+    policy: Optional[LC.LifecyclePolicy] = None,
 ) -> Tuple[S.UruvStore, np.ndarray, List[Tuple[int, List[Tuple[int, int]]]]]:
     """Array-level mixed announce sequencer — the host half of the ADT.
 
@@ -176,7 +195,8 @@ def apply_mixed(
     rmask = codes == OP_RANGE
     if not rmask.any():
         store, res = _apply_rounds(store, codes, keys, vals, None, None,
-                                   light_path=light_path, stats=stats)
+                                   light_path=light_path, stats=stats,
+                                   policy=policy)
         return store, res.astype(np.int64), []
     base = int(store.ts)
     op_ts = (base + np.arange(n)).astype(np.int32)
@@ -201,7 +221,8 @@ def apply_mixed(
         else:
             store, res = _apply_rounds(store, codes[i:j], keys[i:j],
                                        vals[i:j], op_ts[i:j], base + j,
-                                       light_path=light_path, stats=stats)
+                                       light_path=light_path, stats=stats,
+                                       policy=policy)
             results[i:j] = res
         i = j
     return store, results, range_pages

@@ -12,8 +12,8 @@ order, and ``leaf_ent`` maps a leaf id back to its bottom entry.
 Field names and every array match the JAX ``UruvIndex``; the per-level
 tuples are lists of tensors here.  All functions are plain tensor code
 on the index's device.  ``merge_deletable``, ``apply_merge_delta``,
-``retarget_leaves`` and ``grow_to`` come with the port of
-``core/lifecycle.py`` (ROADMAP).
+``retarget_leaves`` and ``grow_to`` serve ``repro_torch.core.lifecycle``
+(leaf merges, relocation and pool growth).
 """
 
 # uruvlint: disable-file=layering-index; reason: this IS the port's index module: rank/select over the spine is searchsorted by design (the JAX twin is the rule's allowed repro/core/index.py)
@@ -461,6 +461,142 @@ def apply_split_delta(idx: UruvIndex, valid: torch.Tensor,
         stat_propagations=idx.stat_propagations + props,
     )
     return new, oflow
+
+
+# ---------------------------------------------------------------------------
+# Lifecycle deltas: leaf merges, relocation, growth
+# ---------------------------------------------------------------------------
+
+def merge_deletable(idx: UruvIndex, ord_del: torch.Tensor) -> torch.Tensor:
+    """True where the separator at ordinal ``ord_del`` may be deleted by a
+    leaf merge: it must NOT be slot 0 of its bottom node (entry keys are
+    subtree lower bounds).  Skipped pairs become eligible after a
+    reindex."""
+    _, slot = ord_locate(idx, ord_del)
+    return slot >= 1
+
+
+def apply_merge_delta(idx: UruvIndex, ord_del: torch.Tensor,
+                      lb: torch.Tensor, valid: torch.Tensor) -> UruvIndex:
+    """Delete the separators at ordinals ``ord_del`` (the right members of
+    merged leaf pairs; ``lb`` their leaf ids).  The caller guarantees each
+    is at slot >= 1 of its bottom node (:func:`merge_deletable`), so no
+    node empties and nothing propagates.  O(budget · F)."""
+    cfg = idx.cfg
+    F = cfg.fanout
+    C0 = cfg.caps[0]
+    dev = idx.leaf_ent.device
+    node, slot = ord_locate(idx, ord_del)
+    node = torch.where(valid, node, C0)
+    ent = O.lin_elem(node, torch.where(valid, slot, F), C0, F)
+    keys0 = O.drop_set(idx.node_keys[0], ent, KEY_MAX)
+    child0 = O.drop_set(idx.node_child[0], ent, -1)
+    # compact the touched rows sort-free: survivors keep their order, each
+    # moves to the count of survivors before it (rows of a node shared by
+    # several deletes are identical, so their scatters agree)
+    gnode = torch.where(valid, node, 0)
+    rk = keys0[gnode]                                  # [B, F]
+    rch = child0[gnode]
+    B = rk.shape[0]
+    live_e = (rk < KEY_MAX).to(I32)
+    newpos = torch.cumsum(live_e, 1, dtype=I32) - live_e
+    rows = O.arange32(B, dev)[:, None].expand(B, F)
+    lin = O.lin_elem(rows, torch.where(live_e > 0, newpos, F), B, F)
+    ck = O.drop_set(torch.full((B, F), KEY_MAX, dtype=I32, device=dev),
+                    lin, rk)
+    cch = O.drop_set(torch.full((B, F), -1, dtype=I32, device=dev), lin,
+                     rch)
+    keys0 = O.drop_set(keys0, O.lin_rows(node, C0, F), ck)
+    child0 = O.drop_set(child0, O.lin_rows(node, C0, F), cch)
+    dcnt = torch.zeros(C0 + 1, dtype=I32, device=dev).index_add_(
+        0, node.long(), valid.to(I32))[:C0]
+    cnt0 = idx.node_cnt[0] - dcnt
+
+    # reverse map: cleared leaves out, shifted survivors rewritten
+    ML = idx.leaf_ent.shape[0]
+    leaf_ent = O.drop_set(idx.leaf_ent,
+                          O.lin_1d(torch.where(valid, lb, ML), ML), -1)
+    sl = O.arange32(F, dev)[None, :]
+    tmask = valid[:, None] & (sl < cnt0[gnode][:, None])
+    leaf_ent = O.drop_set(leaf_ent,
+                          O.lin_1d(torch.where(tmask, cch, ML), ML),
+                          torch.where(tmask, gnode[:, None] * F + sl, -1))
+
+    # spine: counts changed -> prefix refresh (node set unchanged)
+    o = O.arange32(C0, dev)
+    liveo = o < idx.n_nodes0
+    ord_cnt = torch.where(liveo, cnt0[idx.ord_node.clamp_min(0)], 0)
+    ord_start = O.cumsum32(ord_cnt) - ord_cnt
+    ord_start = torch.where(liveo, ord_start, _I32MAX).to(I32)
+    return dataclasses.replace(
+        idx,
+        node_keys=[keys0] + list(idx.node_keys[1:]),
+        node_child=[child0] + list(idx.node_child[1:]),
+        node_cnt=[cnt0] + list(idx.node_cnt[1:]),
+        ord_start=ord_start, leaf_ent=leaf_ent)
+
+
+def retarget_leaves(idx: UruvIndex, src: torch.Tensor, dst: torch.Tensor,
+                    valid: torch.Tensor) -> UruvIndex:
+    """Point the bottom entries of relocated leaves at their new ids
+    (lifecycle relocation ``src -> dst``): O(budget) scatters through the
+    reverse map."""
+    F = idx.cfg.fanout
+    C0 = idx.cfg.caps[0]
+    ML = idx.leaf_ent.shape[0]
+    ent = idx.leaf_ent[torch.where(valid, src, 0).long()]
+    node = torch.where(valid & (ent >= 0), ent // F, C0)
+    slot = (ent % F).clamp(0, F - 1)
+    child0 = O.drop_set(idx.node_child[0], O.lin_elem(node, slot, C0, F),
+                        torch.where(valid, dst, -1))
+    leaf_ent = O.drop_set(idx.leaf_ent,
+                          O.lin_1d(torch.where(valid, src, ML), ML), -1)
+    leaf_ent = O.drop_set(leaf_ent,
+                          O.lin_1d(torch.where(valid, dst, ML), ML), ent)
+    return dataclasses.replace(
+        idx, node_child=[child0] + list(idx.node_child[1:]),
+        leaf_ent=leaf_ent)
+
+
+def grow_to(idx: UruvIndex, new_cfg: IndexConfig, new_ml: int) -> UruvIndex:
+    """Tail-extend every node pool to ``new_cfg`` capacities and stack
+    fresh root levels when the depth grows.  Node ids, spine ordinals and
+    every entry are preserved bit-exactly: pools extend at the tail."""
+    F = new_cfg.fanout
+    dev = idx.leaf_ent.device
+    assert new_cfg.depth >= idx.cfg.depth
+
+    def pad(x, n, fill):
+        extra = n - x.shape[0]
+        if extra == 0:
+            return x
+        return torch.cat([x, torch.full((extra,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=dev)])
+
+    keys_t, child_t, cnt_t = [], [], []
+    for l in range(idx.cfg.depth):
+        keys_t.append(pad(idx.node_keys[l], new_cfg.caps[l], KEY_MAX))
+        child_t.append(pad(idx.node_child[l], new_cfg.caps[l], -1))
+        cnt_t.append(pad(idx.node_cnt[l], new_cfg.caps[l], 0))
+    for l in range(idx.cfg.depth, new_cfg.depth):
+        Cl = new_cfg.caps[l]
+        k = torch.full((Cl, F), KEY_MAX, dtype=I32, device=dev)
+        k[0, 0] = KEY_MIN
+        c = torch.full((Cl, F), -1, dtype=I32, device=dev)
+        c[0, 0] = 0
+        n = torch.zeros(Cl, dtype=I32, device=dev)
+        n[0] = 1
+        keys_t.append(k)
+        child_t.append(c)
+        cnt_t.append(n)
+    C0 = new_cfg.caps[0]
+    return dataclasses.replace(
+        idx, node_keys=keys_t, node_child=child_t, node_cnt=cnt_t,
+        ord_node=pad(idx.ord_node, C0, -1),
+        node_pos=pad(idx.node_pos, C0, -1),
+        ord_start=pad(idx.ord_start, C0, _I32MAX),
+        leaf_ent=pad(idx.leaf_ent, new_ml, -1),
+        cfg=new_cfg)
 
 
 # ---------------------------------------------------------------------------

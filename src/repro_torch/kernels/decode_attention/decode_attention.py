@@ -1,0 +1,68 @@
+"""Decode attention kernel: one new token per sequence against a KV cache
+with per-sequence lengths, optionally with the ``(m, l)`` softmax stats.
+
+CUDA source: ``repro_torch/csrc/decode_attention.cu`` (design notes
+there).  It replaces the Pallas TPU kernel ``decode_attention`` of
+``src/repro/kernels/decode_attention/decode_attention.py``.  The wrapper
+launches the kernel for a CUDA tensor and takes the plain twin in
+``ref.py`` for a CPU tensor; any other device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
+}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_GROUP = 32          # q heads per kv head: one warp each in a block
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, return_stats: bool = False):
+    """q [B, H, D], k/v [B, KVH, S, D], lengths [B] int32 (a length past S
+    counts as S) -> out [B, H, D] in q's dtype, plus ``m``, ``l`` [B, H, 1]
+    fp32 with ``return_stats``."""
+    if _build.device_type(q) == "cpu":
+        return decode_attention_ref(q, k, v, lengths,
+                                    return_stats=return_stats)
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"decode_attention: dtype {q.dtype} not in "
+                        f"{sorted(map(str, DTYPE_CODE))}")
+    _build.require("decode_attention", q.device, q.dtype, q=q, k=k, v=v)
+    _build.require("decode_attention", q.device, torch.int32,
+                   lengths=lengths)
+    B, H, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    if (k.shape != (B, KVH, S, D) or v.shape != k.shape or KVH < 1
+            or H % KVH or H // KVH > MAX_GROUP or lengths.shape != (B,)
+            or not 1 <= D <= MAX_HEAD_DIM):
+        raise ValueError(
+            f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"lengths {tuple(lengths.shape)} (need H % KVH == 0, "
+            f"H / KVH <= {MAX_GROUP}, D <= {MAX_HEAD_DIM})")
+    out = torch.empty_like(q)
+    m = torch.empty(B, H, 1, dtype=torch.float32, device=q.device)
+    l = torch.empty(B, H, 1, dtype=torch.float32, device=q.device)
+    if B:
+        lib = _build.load("decode_attention", _SIGNATURES)
+        _build.launch_counts["decode_attention"] += 1
+        rc = lib.decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  lengths.data_ptr(), out.data_ptr(),
+                                  m.data_ptr(), l.data_ptr(), B, H, KVH, S,
+                                  D, DTYPE_CODE[q.dtype],
+                                  _build.stream_ptr(q))
+        _build.check(rc, "decode_attention")
+    if return_stats:
+        return out, m, l
+    return out

@@ -1,0 +1,54 @@
+"""Uniform model API of the port: the dense transformer family, plus the
+bridge that carries the JAX package's parameters across."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    init: Callable                   # (cfg, gen) -> params
+    forward_train: Callable          # (cfg, params, tokens) -> (logits, aux)
+    init_cache: Optional[Callable]   # (cfg, B, Smax, dtype, device) -> cache
+    decode_step: Optional[Callable]  # (cfg, params, tokens, cache, lengths)
+
+
+def get_model(cfg: ArchConfig) -> ModelAPI:
+    """The dense decoder family; every other family raises until its port
+    lands (ROADMAP.md)."""
+    for family, present in (("hybrid (zamba)", cfg.hybrid_attn_every > 0),
+                            ("xLSTM", cfg.xlstm is not None),
+                            ("MoE", cfg.moe is not None),
+                            ("VLM", cfg.vlm is not None),
+                            ("encoder-only", cfg.encoder_only)):
+        if present:
+            raise NotImplementedError(
+                f"{cfg.name}: the {family} family is not ported yet "
+                "(see ROADMAP.md)")
+    return ModelAPI(transformer.init, transformer.forward_train,
+                    transformer.init_cache, transformer.decode_step)
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None) -> Dict:
+    """The JAX parameter pytree (nested dicts of numpy arrays, layers
+    stacked [L, ...], e.g. ``jax.device_get(params)``) as the port's
+    parameters on ``device`` (default cuda): same keys, same layouts,
+    same dtypes."""
+    from repro_torch.core.store import resolve_device
+
+    get_model(cfg)
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return torch.as_tensor(np.array(t), device=dev)
+    return conv(tree)

@@ -30,7 +30,8 @@ FIXED = JPolicy(auto_grow=False, auto_maintain=False)
 def _pair(**over):
     cfg = dict(CFG, **over)
     return (JUruv(JConfig(**cfg), policy=FIXED, backend="xla"),
-            T.Uruv(T.UruvConfig(**cfg), device="cpu"))
+            T.Uruv(T.UruvConfig(**cfg), device="cpu",
+                   policy=T.FIXED_FOOTPRINT))
 
 
 def _crud(rng, n, universe=500):
@@ -153,8 +154,22 @@ def test_fixed_footprint_capacity_error_matches_jax():
 def test_policy_and_device_guards():
     import torch
 
-    with pytest.raises(NotImplementedError, match="lifecycle"):
-        T.Uruv(T.UruvConfig(), device="cpu", policy=T.LifecyclePolicy())
+    # the default policy is self-sizing: the same ingest that overflows a
+    # fixed footprint grows the pools instead
+    tiny = dict(CFG, max_leaves=8, max_versions=64)
+    keys = np.arange(64, dtype=np.int32)
+    db = T.Uruv(T.UruvConfig(**tiny), device="cpu")
+    assert db.executor.policy == T.LifecyclePolicy()
+    for i in range(0, 64, 8):
+        db.insert(keys[i:i + 8], keys[i:i + 8])
+    assert db.stats["grows"] > 0 and db.capacity.max_leaves > 8
+    assert db.live_items() == [(int(k), int(k)) for k in keys]
+    fixed = T.Uruv(T.UruvConfig(**tiny), device="cpu",
+                   policy=T.FIXED_FOOTPRINT)
+    with pytest.raises(T.CapacityError):
+        for i in range(0, 64, 8):
+            fixed.insert(keys[i:i + 8], keys[i:i + 8])
+    assert fixed.capacity.max_leaves == 8
     assert T.Uruv(T.UruvConfig(**CFG), device="cpu",
                   policy=T.FIXED_FOOTPRINT).ts == 0
     if not torch.cuda.is_available():

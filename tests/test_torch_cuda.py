@@ -4,7 +4,10 @@ Every test here needs an NVIDIA GPU and skips without one; run them on
 the card with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  The file imports neither ``jax`` nor
 ``repro``, so it runs where only PyTorch is installed.  The store is
-integer, so the tolerance is exact equality.
+integer, so its kernels must equal their twins exactly.  The attention
+kernels and their twins both compute in fp32 and round the result to the
+inputs' dtype: they agree within 2e-5 in fp32 (summation order) and
+within one rounding step in bf16 (atol 1e-5, rtol 2^-7).
 """
 
 import numpy as np
@@ -16,6 +19,14 @@ from repro_torch.core import index as TI
 from repro_torch.core import store as TS
 from repro_torch.core.ref import KEY_MAX, KEY_MIN, TOMBSTONE
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.decode_attention import (
+    decode_attention,
+)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
 from repro_torch.kernels.uruv_search.ref import (
@@ -144,3 +155,71 @@ def test_client_on_card_equals_cpu(card):
         assert store_c[name].dtype == store_p[name].dtype, name
         np.testing.assert_array_equal(store_c[name], store_p[name],
                                       err_msg=name)
+
+
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
+
+
+def _close(got, want, tol):
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,causal,win", [
+    (2, 4, 2, 96, 96, 32, True, 0),
+    (1, 4, 1, 64, 64, 16, False, 0),
+    (2, 8, 4, 80, 80, 32, True, 24),
+    (1, 2, 2, 64, 64, 64, True, 0),
+    (1, 32, 8, 300, 300, 64, True, 0),      # llama3.2-1b prefill widths
+    (1, 4, 2, 37, 70, 128, False, 9),       # ragged, Sq != Skv
+    (1, 2, 1, 20, 20, 256, True, 3),        # widest head, >48 KB smem
+])
+def test_flash_attention_matches_twin(card, B, H, KVH, Sq, Skv, D, causal,
+                                      win, dtype):
+    g = torch.Generator(device="cpu").manual_seed(B * 1000 + Sq + D)
+    q, k, v = (torch.randn(shape, generator=g).to(card, dtype)
+               for shape in ((B, H, Sq, D), (B, KVH, Skv, D),
+                             (B, KVH, Skv, D)))
+    n0 = _build.launch_counts["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, attention_ref(q, k, v, causal=causal, window=win),
+           TOL[dtype])
+
+
+def test_flash_attention_masked_rows_give_zero(card):
+    """Rows with no unmasked key (a window past the kv length) output 0."""
+    q = torch.randn(1, 2, 16, 32, device=card)
+    k = torch.randn(1, 1, 4, 32, device=card)
+    v = torch.randn(1, 1, 4, 32, device=card)
+    got = flash_attention(q, k, v, causal=False, window=2)
+    want = attention_ref(q, k, v, causal=False, window=2)
+    assert torch.all(got[:, :, 6:] == 0)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,S,D", [
+    (3, 8, 2, 100, 32), (2, 4, 4, 64, 16), (1, 8, 1, 130, 64),
+    (4, 32, 8, 512, 64),                     # llama3.2-1b decode widths
+    (2, 32, 8, 77, 128), (2, 2, 2, 40, 256),
+])
+def test_decode_attention_matches_twin(card, B, H, KVH, S, D, dtype):
+    g = torch.Generator(device="cpu").manual_seed(B * 100 + S + D)
+    q = torch.randn(B, H, D, generator=g).to(card, dtype)
+    k = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    v = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    lens = torch.randint(0, S + 3, (B,), generator=g).int().to(card)
+    lens[0] = 0                              # an empty sequence gives 0
+    got, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    want, wm, wl = decode_attention_ref(q, k, v, lens, return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.all(got[0] == 0) and torch.all(l[0] == 0)
+    _close(got, want, TOL[dtype])
+    _close(m, wm, 1e-5)
+    _close(l, wl, 1e-4)

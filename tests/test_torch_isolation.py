@@ -44,6 +44,8 @@ def test_api_imports_with_jax_blocked():
             "sys.modules['repro'] = None\n"
             "import repro_torch.api as api\n"
             "import repro_torch.core.batch, repro_torch.core.store\n"
+            "import repro_torch.core.lifecycle, repro_torch.launch.serve\n"
+            "import repro_torch.serve.engine, repro_torch.models.registry\n"
             "db = api.Uruv(api.UruvConfig(leaf_cap=8, max_leaves=64), "
             "device='cpu')\n"
             "db.insert([3, 1, 2], [30, 10, 20])\n"
