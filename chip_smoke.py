@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the full run (one card, ~minutes)
     python3 chip_smoke.py --prefill 20000 --plans 2 --reduced 5000  # short
+    python3 chip_smoke.py --durable-worker DIR --crash SEL --keys N  # phase 9's worker
 
 Phases, one line each (any failure exits non-zero):
 
@@ -43,11 +44,29 @@ Phases, one line each (any failure exits non-zero):
                decode steps; fp32 logits within atol = rtol = 1e-4, and
                the bf16 logits no further from the CPU's fp32 logits than
                twice as far as the CPU's own bf16 logits are
-  9. kernels   each kernel again at the widest inputs its path gave it:
+  9. durability the main configuration as a durable client
+               (``durable_dir``, ``group_commit=8``): prefill, a full
+               ``checkpoint()``, ``--plans`` fig9b plans, a delta
+               checkpoint, half as many more plans (the WAL tail); then
+               ``Uruv.recover`` on the card must give the live store bit
+               for bit (the clock, every array, a held snapshot's pages
+               and lookups) after replaying exactly the tail; then two
+               worker processes (this script with ``--durable-worker``,
+               importing only ``repro_torch``) are killed by
+               ``wal.mid_append`` and ``ckpt.renamed:2`` crash points and
+               each directory recovers to a prefix that covers every plan
+               the worker acknowledged and equals a host replay of it
+ 10. kernels   each kernel again at the widest inputs its path gave it:
                parity with its twin (exact for the int32 store kernels;
                attention within one bf16 ulp, atol 1e-5 + rtol 2^-7, in
                bf16 and within 2e-5 in fp32), its time, its plain twin's
-               time, its bound and the PyTorch library call's time
+               time, its bound and the PyTorch library call's time.
+               ``search_positions`` (the flat-directory rank, which no path
+               of either package calls) runs through its kernel-level
+               entry on the main store's directory, as it stands and
+               padded to ``max_leaves``, with one fig9b plan's keys, and
+               must equal its twin, ``torch.searchsorted`` and the rank
+               of the multi-level index that replaced the flat directory
 
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -97,9 +116,15 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:86"),
+    "search_positions": ("src/repro_torch/csrc/uruv_search.cu",
+                         "src/repro/kernels/uruv_search/uruv_search.py:60"),
 }
 STORE_KERNELS = ("index_descend", "leaf_slots", "versioned_read",
                  "range_scan")
+SERVE_KERNELS = STORE_KERNELS + ("flash_attention", "decode_attention")
+DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
+WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
+WORKER_MIXED = 4              # ... and 4 fig9b plans after their prefill
 
 
 def check(cond, msg: str) -> None:
@@ -165,9 +190,9 @@ def parity_edge_cases(rng, dev) -> None:
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
     from repro_torch.kernels.uruv_range.uruv_range import range_scan
     from repro_torch.kernels.uruv_search.ref import (
-        index_descend_ref, leaf_slots_ref)
+        index_descend_ref, leaf_slots_ref, search_positions_ref)
     from repro_torch.kernels.uruv_search.uruv_search import (
-        index_descend, leaf_slots)
+        index_descend, leaf_slots, search_positions)
     from repro_torch.kernels.versioned_read.ref import versioned_read_ref
     from repro_torch.kernels.versioned_read.versioned_read import (
         versioned_read)
@@ -238,6 +263,19 @@ def parity_edge_cases(rng, dev) -> None:
         check(all(same(a, b) for a, b in zip(got, want)),
               f"range_scan != plain (Q={Q}, S={S}, L={L})")
         n_cases += 1
+    # flat-directory rank: empty, one-entry, ragged and KEY_MAX-padded
+    # sorted directories; queries below dir[0], on every entry, and up to
+    # KEY_MAX - 2 (the valid key domain)
+    for n_dir, n_pad in ((0, 0), (1, 0), (1000, 0), (777, 300), (5, 1 << 17)):
+        d = np.sort(rng.choice(10**7, n_dir, replace=False)).astype(np.int32)
+        d = np.concatenate([d, np.full(n_pad, KEY_MAX, np.int32)])
+        q = np.concatenate([rng.integers(-10, 10**7 + 10, 3000), d[:n_dir],
+                            d[:n_dir] - 1, [KEY_MIN, KEY_MAX - 2]])
+        q = t(q.astype(np.int32))
+        got = search_positions(t(d), q)
+        check(same(got, search_positions_ref(t(d), q)),
+              f"search_positions != plain (n_dir={n_dir}, pad={n_pad})")
+        n_cases += 1
     torch.cuda.synchronize()
     say("parity", cases=n_cases, result="exact")
 
@@ -290,11 +328,26 @@ def mixed_plan(rng, api):
     return api.OpBatch.concat(crud, api.OpBatch.ranges(lo, lo + RANGE_SIZE - 1))
 
 
+def verify_plan(oracle, api, plan, res, tag: str) -> None:
+    """One fig9b plan's results against the host oracle (which it
+    advances): CRUD values, then every RANGE page and its count."""
+    op = dict(insert=api.OP_INSERT, delete=api.OP_DELETE)
+    crud = plan.codes != api.OP_RANGE
+    want = oracle.crud(plan.codes[crud], plan.keys[crud], plan.values[crud],
+                       op)
+    check(np.array_equal(res.values[crud], want),
+          f"{tag}: CRUD results differ from the oracle")
+    for pos in plan.range_positions.tolist():
+        page = np.asarray(res.page(pos), np.int64).reshape(-1, 2)
+        exp = oracle.range(int(plan.keys[pos]), int(plan.values[pos]))
+        check(np.array_equal(page, exp) and res.values[pos] == len(exp),
+              f"{tag}: RANGE page at {pos} differs")
+
+
 def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
               verify: bool, tag: str):
     """Prefill ``n_keys`` distinct keys, then ``n_plans`` mixed plans with
     a held snapshot in the middle.  Returns timing facts."""
-    op = dict(insert=api.OP_INSERT, delete=api.OP_DELETE)
     keys = rng.choice(UNIVERSE, n_keys, replace=False).astype(np.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -325,16 +378,7 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
             continue
         check(np.array_equal(res.timestamps, base + np.arange(len(plan))),
               f"{tag}: timestamps")
-        crud = plan.codes != api.OP_RANGE
-        want = oracle.crud(plan.codes[crud], plan.keys[crud],
-                           plan.values[crud], op)
-        check(np.array_equal(res.values[crud], want),
-              f"{tag}: plan {p} CRUD results differ from the oracle")
-        for pos in plan.range_positions.tolist():
-            page = np.asarray(res.page(pos), np.int64).reshape(-1, 2)
-            exp = oracle.range(int(plan.keys[pos]), int(plan.values[pos]))
-            check(np.array_equal(page, exp) and res.values[pos] == len(exp),
-                  f"{tag}: plan {p} RANGE page at {pos} differs")
+        verify_plan(oracle, api, plan, res, f"{tag}: plan {p}")
     if held is not None:
         lo = rng.integers(0, UNIVERSE - RANGE_SIZE, 64).astype(np.int32)
         pages = db.range_all(lo, lo + RANGE_SIZE - 1, held)
@@ -641,6 +685,74 @@ def kernel_report(main) -> list:
     return rows
 
 
+def search_positions_report(main, api, rng) -> list:
+    """The flat-directory rank on the main store's directory (length
+    ``n_leaves``) and on that directory padded with KEY_MAX to
+    ``max_leaves``, as the TPU wrapper pads, for the keys of one fig9b
+    plan.  No path of either package calls it (the multi-level index
+    replaced the flat directory), so its path here is its kernel-level
+    entry: the counts are set to 0 just before the two calls and read
+    just after.  Then each result is held against the twin,
+    ``torch.searchsorted`` (its library time) and ``max(rank_right - 1,
+    0)`` of the store's multi-level index: exact."""
+    from repro_torch.core import index as I
+    from repro_torch.core import store as S
+    from repro_torch.core.ref import KEY_MAX
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.uruv_search.ref import search_positions_ref
+    from repro_torch.kernels.uruv_search.uruv_search import search_positions
+
+    store = main["store"]
+    dev = store.device
+    seps, _ = S.directory(store)
+    ML = store.cfg.max_leaves
+    padded = np.full(ML, KEY_MAX, np.int32)
+    padded[:len(seps)] = seps
+    dirs = {"n_leaves": torch.as_tensor(seps, device=dev),
+            "max_leaves": torch.as_tensor(padded, device=dev)}
+    q = torch.as_tensor(mixed_plan(rng, api).keys, device=dev)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    got = {k: search_positions(d, q) for k, d in dirs.items()}
+    torch.cuda.synchronize()
+    launches = _build.launch_counts["search_positions"]
+    check(launches == len(dirs), f"search_positions: {launches} launches")
+    rank = (I.rank_right(store.index, q) - 1).clamp_min(0)
+    rows = []
+    for k, d in dirs.items():
+        twin = search_positions_ref(d, q)
+        lib = (torch.searchsorted(d, q, right=True).int() - 1).clamp_min(0)
+        for what, want in (("plain", twin), ("torch.searchsorted", lib),
+                           ("rank_right", rank)):
+            check(same(got[k], want), f"search_positions != {what} on the "
+                                      f"{k} directory")
+        ms = time_ms(lambda d=d: search_positions(d, q))
+        plain_ms = time_ms(lambda d=d: search_positions_ref(d, q), iters=5)
+        library_ms = time_ms(lambda d=d: torch.searchsorted(d, q, right=True))
+        n_dir, P = d.numel(), q.numel()
+        bound_bytes = (4 * n_dir + 2 * 4 * P) / HBM_BYTES_PER_S * 1e3
+        bound_ops = P * max(1, int(np.ceil(np.log2(n_dir)))) \
+            / INT32_OPS_PER_S * 1e3
+        err = max_abs_err((got[k],), (twin,))
+        say("kernel", name="search_positions", directory=k,
+            shape=f"ML={n_dir},P={P}", ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}",
+            bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
+            library_ms=f"{library_ms:.5f}", max_abs_err=err,
+            launches=launches)
+        rows.append(dict(
+            name="search_positions", route="cuda",
+            source=KERNELS["search_positions"][0],
+            replaces=KERNELS["search_positions"][1], launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            library_ms=library_ms))
+    # the JSON line holds one row per kernel: the TPU kernel's own input,
+    # the directory padded to max_leaves
+    return rows[-1:]
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the self-sizing store lifecycle on the card
 # ---------------------------------------------------------------------------
@@ -827,7 +939,7 @@ def serve_phase(args, rng) -> dict:
     check(all(r.prefix_reused >= SYSTEM_PROMPT for r in follow_ups),
           "serve: a follow-up turn did not reuse the system prompt: "
           + str([r.prefix_reused for r in follow_ups]))
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never ran on the serve path")
     new_tokens = sum(len(r.out) for r in reqs)
@@ -924,7 +1036,250 @@ def model_cpu_equals_cuda(args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9 (attention): the two attention kernels at the serve path's inputs
+# phase 9: durability — WAL, full + delta checkpoints, recovery, kill -9
+# ---------------------------------------------------------------------------
+
+def _dir_mib(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*")
+               if f.is_file()) / 2**20
+
+
+def worker_plans(api, seed: int, n_keys: int) -> list:
+    """A durability worker's plan stream, a pure function of the seed:
+    ``n_keys`` distinct inserts in plans of WIDTH, then WORKER_MIXED fig9b
+    plans."""
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(UNIVERSE, n_keys, replace=False).astype(np.int32)
+    plans = [api.OpBatch.inserts(keys[i:i + WIDTH],
+                                 keys[i:i + WIDTH] % 1000 + 1)
+             for i in range(0, n_keys, WIDTH)]
+    return plans + [mixed_plan(rng, api) for _ in range(WORKER_MIXED)]
+
+
+def durable_worker(args) -> int:
+    """``--durable-worker DIR``: apply the worker plan stream to a durable
+    client of the main configuration on the card, print ``acked i`` once
+    plan i's result is back (its record is on disk: ``group_commit=1``),
+    checkpoint every WORKER_CKPT_EVERY plans.  The parent kills it by a
+    crash point (``URUV_CRASH_POINT``); JAX cannot even be imported."""
+    sys.modules["jax"] = None
+    sys.modules["repro"] = None
+    import repro_torch.api as api
+
+    db = api.Uruv(api.UruvConfig(**MAIN_CFG), durable_dir=args.durable_worker)
+    for i, plan in enumerate(worker_plans(api, args.seed, args.keys), 1):
+        db.apply(plan)
+        print(f"acked {i}", flush=True)
+        if i % WORKER_CKPT_EVERY == 0:
+            db.checkpoint()
+    db.durability.close()
+    print("done", flush=True)
+    return 0
+
+
+def kill9_worker(args, api, crash: str) -> dict:
+    """Run one worker until its crash point kills it, recover its directory
+    on the card and hold the result against a host replay of exactly the
+    recovered prefix, which must cover every acknowledged plan."""
+    import os
+    import signal
+
+    from repro_torch.distributed.fault import CRASH_POINT_ENV
+
+    d = DURABLE_DIR / crash.replace(":", "_").replace(".", "_")
+    env = dict(os.environ, **{CRASH_POINT_ENV: crash})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--durable-worker",
+         str(d), "--keys", str(args.reduced), "--seed", str(args.seed + 3)],
+        env=env, capture_output=True, text=True, timeout=600)
+    worker_s = time.perf_counter() - t0
+    check(proc.returncode == -signal.SIGKILL,
+          f"durability worker at {crash}: rc={proc.returncode}, not killed\n"
+          + proc.stderr[-2000:])
+    acked = max((int(line.split()[1]) for line in proc.stdout.splitlines()
+                 if line.startswith("acked ")), default=0)
+    plans = worker_plans(api, args.seed + 3, args.reduced)
+    bounds = np.cumsum([0] + [len(p) for p in plans]).tolist()
+    db = api.Uruv.recover(d)
+    check(db.ts in bounds, f"{crash}: recovered clock {db.ts} is not a plan "
+                           "boundary")
+    m = bounds.index(db.ts)
+    check(acked <= m <= len(plans),
+          f"{crash}: recovered {m} plans, the worker acknowledged {acked}")
+    oracle = Oracle(api.NOT_FOUND, api.TOMBSTONE)
+    op = dict(insert=api.OP_INSERT, delete=api.OP_DELETE)
+    for plan in plans[:m]:
+        crud = plan.codes != api.OP_RANGE
+        oracle.crud(plan.codes[crud], plan.keys[crud], plan.values[crud], op)
+    live = np.asarray(db.live_items(), np.int64).reshape(-1, 2)
+    ks = np.nonzero(oracle.val != api.NOT_FOUND)[0]
+    check(np.array_equal(live, np.stack([ks, oracle.val[ks]], 1)),
+          f"{crash}: recovered items differ from the host replay")
+    probe = np.concatenate([plans[0].keys[:2048], np.random.default_rng(
+        args.seed).integers(0, UNIVERSE, 2048)]).astype(np.int32)
+    check(np.array_equal(db.lookup(probe), oracle.val[probe]),
+          f"{crash}: recovered lookups differ from the host replay")
+    db.durability.close()
+    return dict(crash=crash, acked=acked, recovered=m, plans=len(plans),
+                checkpoint_step=db.recovery.checkpoint_step,
+                replayed=db.recovery.replayed_plans,
+                torn_bytes=db.recovery.wal.truncated_bytes,
+                worker_s=round(worker_s, 3))
+
+
+def durability_phase(args, api, rng, card: str,
+                     volatile_ops_per_s: float) -> dict:
+    """A durable client of the main configuration: prefill, full
+    checkpoint, fig9b plans (a snapshot held from their middle), delta
+    checkpoint, a WAL tail; dropped without closing and recovered on the
+    card bit for bit; then the two kill -9 workers."""
+    import shutil
+
+    from repro_torch.checkpoint import manager as M
+    from repro_torch.core import store as S
+    from repro_torch.durability import recovery as R
+    from repro_torch.kernels import _build
+
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    d = DURABLE_DIR / "main"
+    db = api.Uruv(api.UruvConfig(**MAIN_CFG), durable_dir=d, group_commit=8)
+    wal = {"s": 0.0, "n": 0}
+    log_plan = db.durability.log_plan
+
+    def timed_log(*a, **kw):
+        t = time.perf_counter()
+        log_plan(*a, **kw)
+        wal["s"] += time.perf_counter() - t
+        wal["n"] += 1
+    db.durability.log_plan = timed_log
+
+    oracle = Oracle(api.NOT_FOUND, api.TOMBSTONE)
+    keys = rng.choice(UNIVERSE, args.prefill, replace=False).astype(np.int32)
+    for i in range(0, len(keys), WIDTH):
+        k = keys[i:i + WIDTH]
+        res = db.apply(api.OpBatch.inserts(k, k % 1000 + 1))
+        check(np.all(res.values == api.NOT_FOUND),
+              "durability: prefill insert saw a previous value")
+        oracle.val[k] = k % 1000 + 1
+
+    def timed_checkpoint(delta: bool):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = db.checkpoint(delta=delta)
+        ms = (time.perf_counter() - t) * 1e3
+        return step, ms, _dir_mib(d / "ckpt" / f"step_{step:08d}")
+    full_step, full_ms, full_mib = timed_checkpoint(False)
+
+    apply_s, n_ops = 0.0, 0
+    n1, n2 = args.plans, max(1, args.plans // 2)
+    held = held_val = None
+    for p in range(n1 + n2):
+        if p == n1 // 2:
+            # registered inside the delta checkpoint: a snapshot takes a
+            # clock tick that no WAL record carries (ROADMAP Queue 3 item 2)
+            held = db.acquire_snapshot()
+            held_val = oracle.val.copy()
+        if p == n1:
+            delta_step, delta_ms, delta_mib = timed_checkpoint(True)
+        plan = mixed_plan(rng, api)
+        t = time.perf_counter()
+        res = db.apply(plan)
+        apply_s += time.perf_counter() - t
+        n_ops += len(plan)
+        verify_plan(oracle, api, plan, res, f"durability: plan {p}")
+    db.sync_durable()
+    torch.cuda.synchronize()
+    live_ts, live = db.ts, S.to_numpy(db.store)
+    wal_ms_per_plan = wal["s"] / wal["n"] * 1e3
+
+    # recover from the directory the live client leaves behind (never
+    # closed), on the card; restore and replay timed apart
+    timers = {"restore": 0.0, "replay": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timers[name] += time.perf_counter() - t
+            return out
+        return run
+    orig_restore, orig_replay = M.CheckpointManager.restore_store, R.replay
+    M.CheckpointManager.restore_store = timed("restore", orig_restore)
+    R.replay = timed("replay", orig_replay)
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        back = api.Uruv.recover(d)
+        torch.cuda.synchronize()
+    finally:
+        M.CheckpointManager.restore_store, R.replay = orig_restore, orig_replay
+    recover_ms = (time.perf_counter() - t) * 1e3
+    counts = dict(_build.launch_counts)
+    for name in STORE_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran in the recovery")
+
+    check(back.ts == live_ts, f"durability: recovered clock {back.ts} != "
+                              f"{live_ts}")
+    check(back.recovery.replayed_plans == n2
+          and back.recovery.checkpoint_step == delta_step,
+          f"durability: replayed {back.recovery.replayed_plans} plans from "
+          f"step {back.recovery.checkpoint_step}; want {n2} from {delta_step}")
+    got = S.to_numpy(back.store)
+    check(sorted(got) == sorted(live), "durability: store fields differ")
+    for name in live:
+        check(got[name].dtype == live[name].dtype
+              and np.array_equal(got[name], live[name]),
+              f"durability: the recovered store differs in {name}")
+    lo = rng.integers(0, UNIVERSE - RANGE_SIZE, 64).astype(np.int32)
+    probe = rng.integers(0, UNIVERSE, WIDTH).astype(np.int32)
+    pages = [c.range_all(lo, lo + RANGE_SIZE - 1, held) for c in (db, back)]
+    looks = [c.lookup(probe, held) for c in (db, back)]
+    check(pages[0] == pages[1] and np.array_equal(*looks),
+          "durability: the held snapshot reads differently after recovery")
+    for a, pg in zip(lo.tolist(), pages[1]):
+        check(np.array_equal(np.asarray(pg, np.int64).reshape(-1, 2),
+                             oracle.range(a, a + RANGE_SIZE - 1, held_val)),
+              "durability: a held-snapshot page differs from the oracle")
+    check(np.array_equal(looks[1], held_val[probe]),
+          "durability: a held-snapshot lookup differs from the oracle")
+    for c in (db, back):
+        c.release_snapshot(held)
+        c.durability.close()
+
+    # the WAL-tear worker dies appending its last even-numbered plan, one
+    # plan after its last checkpoint, so its recovery replays a WAL tail
+    n_w = len(worker_plans(api, args.seed + 3, args.reduced))
+    tear = n_w - n_w % 2
+    workers = [kill9_worker(args, api, crash) for crash in
+               (f"wal.mid_append:{tear}", "ckpt.renamed:2")]
+    check(workers[0]["replayed"] >= 1 and workers[0]["torn_bytes"] > 0,
+          f"durability: the torn worker replayed no WAL tail: {workers[0]}")
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    out = dict(
+        keys=args.prefill, plans=n1 + n2, full_step=full_step,
+        full_mib=f"{full_mib:.3f}", full_ms=f"{full_ms:.3f}",
+        delta_step=delta_step, delta_mib=f"{delta_mib:.3f}",
+        delta_ms=f"{delta_ms:.3f}",
+        delta_share=f"{delta_mib / full_mib:.5f}",
+        wal_ms_per_plan=f"{wal_ms_per_plan:.4f}", wal_plans=wal["n"],
+        durable_ops_per_s=f"{n_ops / max(apply_s, 1e-9):.1f}",
+        volatile_ops_per_s=f"{volatile_ops_per_s:.1f}",
+        recover_ms=f"{recover_ms:.3f}",
+        restore_ms=f"{timers['restore'] * 1e3:.3f}",
+        replay_ms=f"{timers['replay'] * 1e3:.3f}",
+        replayed_plans=back.recovery.replayed_plans, result="bit-equal",
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""),
+        workers=json.dumps(workers).replace(" ", ""), card=repr(card))
+    say("durability", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10 (attention): the two attention kernels at the serve path's inputs
 # ---------------------------------------------------------------------------
 
 def attention_report(serve) -> list:
@@ -1039,6 +1394,10 @@ def main() -> int:
     ap.add_argument("--prefill", type=int, default=1_000_000)
     ap.add_argument("--plans", type=int, default=16)
     ap.add_argument("--reduced", type=int, default=50_000)
+    ap.add_argument("--durable-worker", metavar="DIR",
+                    help="run one kill -9 worker of phase 9 into DIR")
+    ap.add_argument("--keys", type=int, default=50_000,
+                    help="the worker's prefill keys")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1046,6 +1405,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.durable_worker:
+        return durable_worker(args)
     import repro_torch.api as api
     from repro_torch.kernels import _build
 
@@ -1065,7 +1426,11 @@ def main() -> int:
     lifecycle_phase(api, rng)
     serve_res = serve_phase(args, rng)
     model_cpu_equals_cuda(args)
-    rows = kernel_report(main_res) + attention_report(serve_res)
+    facts = main_res["facts"]
+    durability_phase(args, api, rng, card,
+                     facts["n_ops"] / max(facts["apply_s"], 1e-9))
+    rows = (kernel_report(main_res) + attention_report(serve_res)
+            + search_positions_report(main_res, api, rng))
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@
   * :class:`Uruv`     — the client: ``apply(batch)``, convenience verbs,
     the pipelined ``apply_nowait``/``confirm``, ``snapshot()``,
     ``range``/``range_all``/``range_page``/``scan_page``, ``compact()``,
-    ``reindex()``, ``maintain()``, ``grow()``.  It runs on ``cuda``
-    unless given ``device="cpu"``.
+    ``reindex()``, ``maintain()``, ``grow()``, and the durable verbs
+    (``durable_dir=``, ``checkpoint()``, ``sync_durable()``,
+    ``Uruv.recover``; see ``repro_torch.durability``).  It runs on
+    ``cuda`` unless given ``device="cpu"``.
   * :class:`PendingPlan` — a dispatched, unconfirmed plan.
   * :class:`LocalExecutor` — the single-device execution backend.
   * :class:`LifecyclePolicy` — the store lifecycle; the default is

@@ -16,6 +16,12 @@ announce-order timestamp accounting and the snapshot-tracker hygiene.
 The store is self-sizing by default (pools grow on pressure, bounded
 ``maintain`` passes reclaim retired leaves); the pipelined verbs
 ``apply_nowait`` / ``confirm`` serve ``repro_torch.serve.coalescer``.
+
+A client made with ``durable_dir=...`` logs every committed plan to a
+write-ahead log before its result is released and checkpoints on
+``checkpoint()``; ``Uruv.recover(dir)`` rebuilds it after a crash, bit
+for bit (``repro_torch.durability``, in the JAX package's on-disk
+format).
 """
 
 from __future__ import annotations
@@ -52,12 +58,79 @@ class Uruv:
 
     def __init__(self, config: Optional[_store.UruvConfig] = None, *,
                  device=None, store=None,
-                 policy: Optional[LifecyclePolicy] = None):
+                 policy: Optional[LifecyclePolicy] = None,
+                 durable_dir=None, group_commit: int = 1):
         if store is not None:
             config = config or store.cfg
             device = store.device if device is None else device
         self.executor = LocalExecutor(config, device=device, policy=policy)
         self._store = store if store is not None else self.executor.create()
+        self.recovery = None       # set by Uruv.recover()
+        if durable_dir is not None:
+            from repro_torch.durability.recovery import Durability
+
+            dur = Durability(durable_dir, group_commit=group_commit,
+                             device=self.executor.device)
+            if dur.has_history:
+                raise ValueError(
+                    f"{durable_dir} already holds durable history; a fresh "
+                    "client would fork it — use Uruv.recover()")
+            dur.write_config(self.config)
+            self._attach_durability(dur)
+
+    # ----------------------------------------------------------- constructors
+    @classmethod
+    def from_store(cls, store, *,
+                   policy: Optional[LifecyclePolicy] = None) -> "Uruv":
+        """Adopt an existing store on its own device (no copy: a pass
+        never writes into its input, so the donor keeps its snapshot)."""
+        return cls(store.cfg, store=store, policy=policy)
+
+    @classmethod
+    def recover(cls, durable_dir, *, device=None,
+                policy: Optional[LifecyclePolicy] = None,
+                group_commit: int = 1) -> "Uruv":
+        """Rebuild a ``durable_dir=...`` client after a crash on
+        ``device`` (default ``cuda``): restore the newest complete
+        checkpoint (full or delta chain), replay the WAL tail at its
+        recorded timestamps — bit-identical values AND version timestamps
+        — and keep logging into the same directory.  The
+        :class:`repro_torch.durability.recovery.RecoveryInfo` lands on
+        ``db.recovery``."""
+        from repro_torch.durability.recovery import recover as _recover
+
+        return _recover(durable_dir, device=device, policy=policy,
+                        group_commit=group_commit)
+
+    # ------------------------------------------------------------ durability
+    def _attach_durability(self, durability) -> None:
+        self.executor.durability = durability
+
+    @property
+    def durability(self):
+        """The attached durability sidecar (None for a volatile client)."""
+        return self.executor.durability
+
+    def sync_durable(self) -> None:
+        """Close the group-commit window: fsync every logged plan still
+        pending.  A no-op for a volatile client."""
+        dur = self.durability
+        if dur is not None:
+            dur.sync()
+
+    def checkpoint(self, *, delta: bool = True) -> int:
+        """Checkpoint the current store into the durable directory (a
+        delta against the previous checkpoint when one exists; the first
+        save is always full) and prune WAL segments the checkpoint
+        covers.  Returns the checkpoint step (the store clock)."""
+        dur = self.durability
+        if dur is None:
+            raise ValueError(
+                "checkpoint() requires a durable client "
+                "(Uruv(durable_dir=...) or Uruv.recover())")
+        return dur.checkpoint(
+            self._store, delta=delta,
+            compactions=self.executor.stats.get("compactions", 0))
 
     # ----------------------------------------------------------------- state
     @property
@@ -95,12 +168,6 @@ class Uruv:
     def active_snapshots(self) -> int:
         """Registered-and-unreleased snapshots in the version tracker."""
         return int(self._store.trk_active.sum())
-
-    def sync_durable(self) -> None:
-        """Close the group-commit window of an attached durability log; a
-        no-op here, since no durability is attached to a port client
-        (a volatile client, as in the JAX package without
-        ``durable_dir``)."""
 
     # ----------------------------------------------------------------- write
     def apply(self, batch: OpBatch, *, light_path: bool = True,
@@ -163,6 +230,14 @@ class Uruv:
             self._store = pending.rollback_store()
             return None
         base = int(pending.store_after.ts) - len(pending.batch)
+        dur = self.durability
+        if dur is not None:
+            # log-on-confirm (the pipelined half of confirm-after-fsync):
+            # an ACCEPTED plan is logged here, before its Result exists; a
+            # rejected plan is never logged — its replay logs through
+            # apply(), so the WAL carries exactly one record per base_ts
+            dur.log_plan(base, pending.batch.codes, pending.batch.keys,
+                         pending.batch.values)
         values = pending.values.cpu().numpy()[:pending.n_user]
         return make_result(values, pending.batch.codes[:pending.n_user],
                            base, ())

@@ -12,6 +12,10 @@ ADT surface.  The contract mirrors the JAX package's executors:
   * ``snapshot / release / compact / reindex / ts``
   * ``grow / maintain / lifecycle_tick`` — the store lifecycle
 
+``durability`` is the write-ahead log sidecar of a durable client (None
+for a volatile one): ``apply`` logs every committed plan through it
+before returning.
+
 ``stats`` counts ``device_passes``, ``slow_path_rounds``,
 ``compactions`` and the lifecycle trio ``grows`` / ``maintain_passes`` /
 ``leaves_reclaimed``.
@@ -75,6 +79,11 @@ class LocalExecutor:
         self.policy = policy if policy is not None \
             else _lifecycle.DEFAULT_POLICY
         self.stats = _new_stats()
+        # durability sidecar (repro_torch.durability.recovery.Durability),
+        # attached by Uruv(durable_dir=...) / Uruv.recover(): every
+        # committed plan is logged to the WAL before its result reaches
+        # the caller
+        self.durability = None
 
     def create(self):
         return _store.create(self.config, self.device)
@@ -111,6 +120,7 @@ class LocalExecutor:
     # ----------------------------------------------------------------- write
     def apply(self, store, batch: OpBatch, *, light_path: bool = True,
               range_opts: RangeOptions = RangeOptions()):
+        base = int(store.ts) if self.durability is not None else 0
         store, values, range_pages = _batch.apply_mixed(
             store, batch.codes, batch.keys, batch.values,
             light_path=light_path, max_results=range_opts.max_results,
@@ -119,6 +129,16 @@ class LocalExecutor:
             policy=self.policy,
         )
         store = self.lifecycle_tick(store)
+        if self.durability is not None and len(batch):
+            # log-on-commit: apply_mixed either applied the WHOLE plan or
+            # raised — a logged record is a committed plan, and it hits
+            # the WAL before the caller sees the result (the sync half of
+            # the confirm-after-fsync contract; the pipelined half is
+            # Uruv.confirm).  The fsync cadence is the sidecar's
+            # group-commit window (1 = every plan).
+            self.durability.log_plan(
+                base, np.asarray(batch.codes), np.asarray(batch.keys),
+                np.asarray(batch.values))
         k2 = np.asarray(batch.values)
         range_items = [(pos, page, int(k2[pos])) for pos, page in range_pages]
         return store, values, range_items

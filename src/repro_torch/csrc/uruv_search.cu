@@ -1,5 +1,5 @@
-// Uruv locate kernels for Hopper: the multi-level fat-node descent and the
-// in-leaf rank.
+// Uruv locate kernels for Hopper: the multi-level fat-node descent, the
+// in-leaf rank and the flat-directory rank.
 //
 // index_descend replaces the Pallas TPU kernel index_descend
 // (src/repro/kernels/uruv_search/uruv_search.py).  The TPU version pins
@@ -81,7 +81,39 @@ __global__ void leaf_slots_kernel(const int* __restrict__ rows,
   }
 }
 
+__global__ void search_positions_kernel(const int* __restrict__ dir, int n_dir,
+                                        const int* __restrict__ queries, int n,
+                                        int* __restrict__ pos) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int q = queries[i];
+  // count = #(dir <= q) over the sorted directory (Khuong-Morin
+  // branch-free search: the loop trip count depends on n_dir only)
+  int count = 0;
+  if (n_dir > 0) {
+    int base = 0;
+    int len = n_dir;
+    while (len > 1) {
+      const int half = len >> 1;
+      base = (__ldg(dir + base + half) <= q) ? base + half : base;
+      len -= half;
+    }
+    count = base + (__ldg(dir + base) <= q);
+  }
+  pos[i] = count > 0 ? count - 1 : 0;
+}
+
 }  // namespace
+
+extern "C" int uruv_search_positions(const int* dir, int n_dir,
+                                     const int* queries, int n, int* pos,
+                                     void* stream) {
+  constexpr int kThreads = 256;
+  search_positions_kernel<<<uruv::blocks_for(n, kThreads), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      dir, n_dir, queries, n, pos);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int uruv_index_descend(const long long* key_ptrs,
                                   const long long* child_ptrs,

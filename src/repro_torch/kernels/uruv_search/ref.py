@@ -5,6 +5,8 @@ wraps once, then clamps), so these agree with the JAX oracles bit for bit
 even on random tables.
 """
 
+# uruvlint: disable-file=layering-index; reason: the plain twin of the flat-directory rank kernel (the JAX oracle lives in the rule's exempt repro/kernels/uruv_search)
+
 from __future__ import annotations
 
 import torch
@@ -37,3 +39,11 @@ def leaf_slots_ref(rows: torch.Tensor, queries: torch.Tensor):
     slot = (rows < queries[:, None]).sum(1, dtype=torch.int32)
     hit = rows.gather(1, slot.clamp_max(L - 1).long()[:, None])[:, 0]
     return slot, (slot < L) & (hit == queries)
+
+
+def search_positions_ref(dir_keys: torch.Tensor, queries: torch.Tensor):
+    """``max(#(dir_keys <= q) - 1, 0)``: for a sorted directory, the
+    reference's ``searchsorted(dir_keys, q, side="right") - 1`` clamped
+    at 0, counted here by a full compare (the TPU kernel's arithmetic)."""
+    cnt = (dir_keys[None, :] <= queries[:, None]).sum(1, dtype=torch.int32)
+    return (cnt - 1).clamp_min(0)

@@ -1,11 +1,14 @@
-"""Locate kernels: multi-level fat-node descent and in-leaf rank.
+"""Locate kernels: multi-level fat-node descent, in-leaf rank and the
+flat-directory rank.
 
 CUDA sources: ``repro_torch/csrc/uruv_search.cu`` (design notes there).
-They replace the Pallas TPU kernels ``index_descend`` and ``leaf_slots``
-of ``src/repro/kernels/uruv_search/uruv_search.py``.  A wrapper launches
+They replace the Pallas TPU kernels ``index_descend``, ``leaf_slots`` and
+``search_positions`` of ``src/repro/kernels/uruv_search/uruv_search.py``.  A wrapper launches
 its kernel for a CUDA tensor and takes the plain twin in ``ref.py`` for
 a CPU tensor; any other device raises.
 """
+
+# uruvlint: disable-file=layering-index; reason: this IS the flat-directory rank kernel (the JAX twin lives in the rule's exempt repro/kernels/uruv_search)
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref,
+    index_descend_ref, leaf_slots_ref, search_positions_ref,
 )
 
 _P = ctypes.c_void_p
@@ -26,6 +29,7 @@ _SIGNATURES = {
                            ctypes.POINTER(ctypes.c_int), _I, _I, _P, _I,
                            _P, _P, _P, _P),
     "uruv_leaf_slots": (_P, _P, _I, _I, _P, _P, _P),
+    "uruv_search_positions": (_P, _I, _P, _I, _P, _P),
 }
 _MAX_DEPTH = 32
 
@@ -90,3 +94,29 @@ def leaf_slots(rows: torch.Tensor, queries: torch.Tensor):
                              _build.stream_ptr(rows))
     _build.check(rc, "leaf_slots")
     return slot, exists
+
+
+def search_positions(dir_keys: torch.Tensor, queries: torch.Tensor):
+    """Flat-directory rank ``max(#(dir_keys <= q) - 1, 0)`` for sorted
+    ``dir_keys`` int32 [ML] and ``queries`` int32 [P]: int32 [P], the
+    reference's ``searchsorted(dir_keys, q, side="right") - 1`` clamped
+    at 0 (valid keys are below KEY_MAX - 1)."""
+    if _build.device_type(queries) == "cpu":
+        return search_positions_ref(dir_keys, queries)
+    _build.require("search_positions", queries.device, torch.int32,
+                   dir_keys=dir_keys, queries=queries)
+    if dir_keys.dim() != 1 or queries.dim() != 1:
+        raise ValueError(f"search_positions: dir_keys "
+                         f"{tuple(dir_keys.shape)} and queries "
+                         f"{tuple(queries.shape)} must be 1-D")
+    P = queries.shape[0]
+    pos = torch.empty(P, dtype=torch.int32, device=queries.device)
+    if P == 0:
+        return pos
+    lib = _build.load("uruv_search", _SIGNATURES)
+    _build.launch_counts["search_positions"] += 1
+    rc = lib.uruv_search_positions(dir_keys.data_ptr(), dir_keys.shape[0],
+                                   queries.data_ptr(), P, pos.data_ptr(),
+                                   _build.stream_ptr(queries))
+    _build.check(rc, "search_positions")
+    return pos

@@ -230,8 +230,9 @@ class Coalescer:
 
     def flush(self) -> None:
         """Dispatch everything queued and settle every in-flight plan, then
-        close the client's group-commit window (``sync_durable``, a no-op
-        while the port has no durability) and run its lifecycle tick."""
+        close the client's group-commit window (``sync_durable``: one fsync
+        for every plan a durable client logged and has not yet synced, so
+        every resolved future is on disk) and run its lifecycle tick."""
         while self.queue or self.inflight:
             self.pump(force=True)
         self.db.sync_durable()

@@ -30,10 +30,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref,
+    index_descend_ref, leaf_slots_ref, search_positions_ref,
 )
 from repro_torch.kernels.uruv_search.uruv_search import (
-    index_descend, leaf_slots,
+    index_descend, leaf_slots, search_positions,
 )
 from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
@@ -105,6 +105,32 @@ def test_kernels_match_twins(card):
             _t(rng.integers(-1, MV, MV), card), _t(val, card))
     _eq(range_scan(*args, max_chain=8), range_scan_ref(*args, max_chain=8))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_dir,n_q", [
+    (64, 16), (1000, 333), (4096, 256), (7, 5), (1, 40),
+    (1 << 17, 4096),                         # the main store's max_leaves
+])
+def test_search_positions_matches_twin(card, n_dir, n_q):
+    """The flat-directory rank kernel at the sweep shapes and at ML =
+    131,072, against its twin and ``torch.searchsorted``: exact.  The
+    large case pads a sorted directory with KEY_MAX as the TPU wrapper
+    does; queries stay in the valid key domain (below KEY_MAX - 1)."""
+    rng = np.random.default_rng(n_dir + n_q)
+    n_real = min(n_dir, 40_000)
+    d = np.full(n_dir, KEY_MAX, np.int32)
+    d[:n_real] = np.sort(rng.choice(10**7, n_real, replace=False))
+    d[0] = KEY_MIN
+    q = rng.integers(-10, 10**7 + 10, n_q).astype(np.int32)
+    q[: min(4, n_q)] = d[: min(4, n_q)]
+    dk, qk = _t(d, card), _t(q, card)
+    n0 = _build.launch_counts["search_positions"]
+    got = search_positions(dk, qk)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["search_positions"] == n0 + 1
+    _eq(got, search_positions_ref(dk, qk))
+    lib = (torch.searchsorted(dk, qk, right=True).int() - 1).clamp_min(0)
+    _eq(got, lib)
 
 
 def _drive(cfg, dev):

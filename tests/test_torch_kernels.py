@@ -21,9 +21,11 @@ from repro.kernels.uruv_range.ref import range_scan_ref as j_range_scan_ref
 from repro.kernels.uruv_range.uruv_range import range_scan as j_range_scan
 from repro.kernels.uruv_search.ref import (
     index_descend_ref as j_index_descend_ref, leaf_slots_ref as j_leaf_slots_ref,
+    search_positions_ref as j_search_positions_ref,
 )
 from repro.kernels.uruv_search.uruv_search import (
     index_descend as j_index_descend, leaf_slots as j_leaf_slots,
+    search_positions as j_search_positions,
 )
 from repro.kernels.versioned_read.ref import (
     versioned_read_ref as j_versioned_read_ref,
@@ -37,10 +39,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref,
+    index_descend_ref, leaf_slots_ref, search_positions_ref,
 )
 from repro_torch.kernels.uruv_search.uruv_search import (
-    index_descend, leaf_slots,
+    index_descend, leaf_slots, search_positions,
 )
 from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
@@ -195,6 +197,53 @@ def test_twin_matches_pallas_interpret(kernel):
     _eq(got, want)
 
 
+@pytest.mark.parametrize("n_dir,n_q,bq,bd", [
+    (64, 16, 8, 16), (1000, 333, 64, 128), (4096, 256, 256, 512),
+    (7, 5, 8, 8),
+])
+def test_search_positions_twin_matches_pallas_interpret(n_dir, n_q, bq, bd):
+    """The flat-directory rank at the four sweep shapes of
+    ``tests/test_kernels.py``: the Pallas kernel in interpret mode, its
+    jnp oracle, the port's twin and its wrapper on the CPU agree exactly.
+    Queries lie in the valid key domain (below KEY_MAX - 1, where the
+    Pallas kernel's pad queries sit); the directory starts at KEY_MIN as
+    a store's does, and queries below ``dir[0]`` would give 0."""
+    rng = np.random.default_rng(n_dir * 7 + n_q)
+    d = np.sort(rng.choice(10**6, n_dir, replace=False)).astype(np.int32)
+    d[0] = -(2**31)
+    q = rng.integers(-10, 10**6 + 10, n_q).astype(np.int32)
+    q[: min(3, n_q)] = d[: min(3, n_q)]            # exact separator hits
+    want = j_search_positions(jnp.asarray(d), jnp.asarray(q),
+                              block_q=bq, block_dir=bd)
+    _eq(j_search_positions_ref(jnp.asarray(d), jnp.asarray(q)), want)
+    _eq(search_positions_ref(_t(d), _t(q)), want)
+    _eq(search_positions(_t(d), _t(q)), want)
+
+
+def test_search_positions_twin_matches_rank_right_of_store():
+    """On the directory of a 50,000-key port store (CPU), the flat rank is
+    ``max(rank_right - 1, 0)`` of the multi-level index that replaced the
+    flat directory: the same leaf ordinal for every query."""
+    import repro_torch.api as T
+    from repro_torch.core.store import directory
+
+    rng = np.random.default_rng(3)
+    db = T.Uruv(T.UruvConfig(leaf_cap=64, max_leaves=2048,
+                             max_versions=1 << 17), device="cpu")
+    keys = rng.choice(2_000_000, 50_000, replace=False).astype(np.int32)
+    for i in range(0, len(keys), 4096):
+        db.insert(keys[i:i + 4096], keys[i:i + 4096] % 1000 + 1)
+    dir_keys, _ = directory(db.store)
+    assert len(dir_keys) == int(db.store.n_leaves) > 100
+    q = np.concatenate([rng.integers(0, 2_000_000, 4096), dir_keys[1:65],
+                        dir_keys[1:65] - 1, [0, KEY_MAX - 2]]).astype(np.int32)
+    got = search_positions(_t(dir_keys), _t(q))
+    want = (TI.rank_right(db.store.index, _t(q)) - 1).clamp_min(0)
+    _eq(got, want.numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.maximum(np.searchsorted(dir_keys, q, "right") - 1, 0))
+
+
 def test_wrappers_count_no_launch_on_cpu():
     """A CPU tensor takes the plain twin: no kernel launch is counted."""
     before = dict(_build.launch_counts)
@@ -202,6 +251,7 @@ def test_wrappers_count_no_launch_on_cpu():
     leaf_slots(rows, _t([0, 5, 9, 40]))
     versioned_read(_t([-1, 0]), _t([3, 3]), _t([1]), _t([-1]), _t([7]),
                    max_chain=2)
+    search_positions(_t([-5, 3, 9]), _t([0, 3, 100]))
     assert dict(_build.launch_counts) == before
 
 
