@@ -61,6 +61,16 @@ Phases, one line each (any failure exits non-zero):
                attention within one bf16 ulp, atol 1e-5 + rtol 2^-7, in
                bf16 and within 2e-5 in fp32), its time, its plain twin's
                time, its bound and the PyTorch library call's time.
+               ``ms`` is CUDA events around 20 wrapper calls (host checks,
+               allocation and the launch included); ``device_ms`` is the
+               kernels' own time per call from a ``torch.profiler`` trace
+               of 20 calls (each kernel's mean over the launches the trace
+               holds; both of decode's launches, split and combine,
+               count; ``device_ms_by`` says ``events`` where three traces
+               held too few launches and CUDA events on a queued stream
+               read it instead), and the attention rows add
+               ``library_device_ms``, the same reading for the
+               ``scaled_dot_product_attention`` call.
                ``search_positions`` (the flat-directory rank, which no path
                of either package calls) runs through its kernel-level
                entry on the main store's directory, as it stands and
@@ -159,6 +169,50 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> tuple:
+    """Mean on-device kernel time of one call of ``fn``, and how it was
+    read.  ``"profiler"``: from the kernels ``torch.profiler`` saw on the
+    card over ``iters`` calls and two more (a trace can lose the last
+    launches before it stops), for each kernel name the mean duration of
+    its recorded launches times its launches per call (a call that
+    launches two kernels counts both).  Unlike :func:`time_ms` it leaves
+    out the host's work between launches (argument checks, allocation,
+    the ``ctypes`` call).  When three traces in a row hold too few
+    launches, ``"events"``: CUDA events around ``iters`` calls queued
+    behind a spin kernel, so the host's work is hidden but the gaps
+    between back-to-back kernels count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_kernel.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    calls = iters + 2
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        durs = {}
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                durs.setdefault(e["name"], []).append(float(e["dur"]))
+        per_call = {n: round(len(d) / calls) for n, d in durs.items()}
+        if durs and min(per_call.values()) >= 1:
+            return sum(per_call[n] * sum(d) / len(d)
+                       for n, d in durs.items()) / 1e3, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)     # tens of ms: the calls queue behind it
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, "events"
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +677,7 @@ def kernel_report(main) -> list:
               f"{name} != plain at the main path's inputs")
         err = max_abs_err(outs, refs)
         ms = time_ms(lambda: fn(*a, **kw))
+        dev_ms, dev_by = device_ms(lambda: fn(*a, **kw))
         plain_ms = time_ms(lambda: ref(*a, **kw), iters=5)
         library_ms = None
         if name == "index_descend":
@@ -673,11 +728,12 @@ def kernel_report(main) -> list:
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=main["counts"].get(name, 0), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms,
+            ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
             library_ms=library_ms))
         say("kernel", name=name, shape=shape, ms=f"{ms:.5f}",
+            device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
             plain_ms=f"{plain_ms:.5f}",
             bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
             library_ms=library_ms if library_ms is None
@@ -727,6 +783,7 @@ def search_positions_report(main, api, rng) -> list:
             check(same(got[k], want), f"search_positions != {what} on the "
                                       f"{k} directory")
         ms = time_ms(lambda d=d: search_positions(d, q))
+        dev_ms, dev_by = device_ms(lambda d=d: search_positions(d, q))
         plain_ms = time_ms(lambda d=d: search_positions_ref(d, q), iters=5)
         library_ms = time_ms(lambda d=d: torch.searchsorted(d, q, right=True))
         n_dir, P = d.numel(), q.numel()
@@ -736,6 +793,7 @@ def search_positions_report(main, api, rng) -> list:
         err = max_abs_err((got[k],), (twin,))
         say("kernel", name="search_positions", directory=k,
             shape=f"ML={n_dir},P={P}", ms=f"{ms:.5f}",
+            device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
             plain_ms=f"{plain_ms:.5f}",
             bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
             library_ms=f"{library_ms:.5f}", max_abs_err=err,
@@ -744,7 +802,8 @@ def search_positions_report(main, api, rng) -> list:
             name="search_positions", route="cuda",
             source=KERNELS["search_positions"][0],
             replaces=KERNELS["search_positions"][1], launches=launches,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+            plain_ms=plain_ms,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
             library_ms=library_ms))
@@ -1368,8 +1427,10 @@ def attention_report(serve) -> list:
         check(torch.allclose(g32, w32, atol=2e-5, rtol=2e-5),
               f"{name} != plain in fp32 (max abs {err32})")
         ms = time_ms(run)
+        dev_ms, dev_by = device_ms(run)
         plain_ms = time_ms(plain, iters=5)
         library_ms = time_ms(lib)
+        library_dev_ms, library_dev_by = device_ms(lib)
         flops = 4 * pairs * D
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / BF16_TC_FLOPS * 1e3
@@ -1377,13 +1438,19 @@ def attention_report(serve) -> list:
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=serve["counts"].get(name, 0), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+            ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
+            bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=library_ms))
+            library_ms=library_ms, library_device_ms=library_dev_ms,
+            library_device_ms_by=library_dev_by))
         say("kernel", name=name, shape=shape, dtype=str(q.dtype),
-            ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
+            plain_ms=f"{plain_ms:.5f}",
             bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
-            library_ms=f"{library_ms:.5f}", max_abs_err=f"{err:.3e}",
+            library_ms=f"{library_ms:.5f}",
+            library_device_ms=f"{library_dev_ms:.5f}",
+            library_device_ms_by=library_dev_by,
+            max_abs_err=f"{err:.3e}",
             max_abs_err_fp32=f"{err32:.3e}")
     return rows
 

@@ -8,6 +8,11 @@ CPU tensors, which take the plain twins.  Tolerances are those of
 TPU kernels' edge conventions (a row with no unmasked key gives 0), which
 the JAX oracle ``attention_ref`` does not; those rows are compared with
 the kernel only.
+
+Two tests carry the card kernels' designs where there is no card: a plain
+PyTorch emulation of the bf16 tensor-core flash kernel's roundings held
+to the card's bf16 gate, and the split-KV decode schedule with its
+combine held against the twin and the Pallas kernel.
 """
 
 import numpy as np
@@ -26,17 +31,22 @@ from repro.kernels.flash_attention.ref import attention_ref as j_aref
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.decode_attention import (
-    decode_attention,
+    TARGET_BLOCKS, TILE_ROWS, _split_schedule, decode_attention,
 )
 from repro_torch.kernels.decode_attention.ops import decode
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 from _torch_port import fresh_jax_caches  # noqa: F401  (autouse)
 
 RNG = np.random.default_rng(7)
+NEG_INF = -1e30
+BF16_GATE = dict(atol=1e-5, rtol=2.0 ** -7)   # the card's bf16 gate
+SERVE_DECODE = (4, 32, 8, 512, 64)            # B, H, KVH, S, D (llama3.2-1b)
+H100_SMS = 132
 
 
 def _both(a, dtype):
@@ -93,37 +103,167 @@ def test_decode_twin_matches_pallas_kernel(B, H, KVH, S, D, bk):
     _close(got_b, j_decode(*jb, jnp.asarray(lens), block_k=bk), 2e-2)
 
 
-def test_decode_stats_split_kv_combine():
-    """Combining per-half (out, m, l) equals the whole-cache result and
-    matches the Pallas kernel's own stats."""
-    B, H, KVH, S, D = 2, 4, 2, 64, 16
+def _combine(parts):
+    """The card's combine of per-split (out, m, l), fp32: m = max m_i,
+    l = sum l_i e^{m_i - m}, out = sum acc_i e^{m_i - m} / (l or 1), with
+    acc_i = out_i l_i and the empty splits (l_i = 0) left out."""
+    o = torch.stack([p[0].float() for p in parts])
+    m = torch.stack([p[1] for p in parts])
+    l = torch.stack([p[2] for p in parts])
+    mx = m.amax(0)
+    w = torch.where(l > 0, torch.exp(m - mx), 0.0)
+    lsum = (l * w).sum(0)
+    out = (o * l * w).sum(0) / torch.where(lsum == 0, 1.0, lsum)
+    return out, mx, lsum
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,lens", [
+    (2, 4, 2, 64, 16, (64, 64)),
+    # the serve shape: 8 splits of 64; length 0 (every split empty), one
+    # ending mid-chunk, one in the last chunk, one past S
+    (4, 32, 8, 512, 64, (0, 100, 481, 700)),
+    (3, 8, 2, 100, 32, (1, 33, 99)),
+])
+def test_decode_stats_split_kv_combine(B, H, KVH, S, D, lens):
+    """The split-KV kernel's schedule and combine on the CPU: each split's
+    (out, m, l) from the twin over its own rows (and the Pallas kernel's
+    stats on the same rows), combined as the card combines them, equals
+    the whole-cache twin and the Pallas kernel for out, m and l."""
     q = RNG.standard_normal((B, H, D)).astype(np.float32)
     k = RNG.standard_normal((B, KVH, S, D)).astype(np.float32)
     v = RNG.standard_normal((B, KVH, S, D)).astype(np.float32)
+    lens = np.asarray(lens, np.int32)
     full = decode_attention(torch.tensor(q), torch.tensor(k),
-                            torch.tensor(v), torch.full((B,), S,
-                                                        dtype=torch.int32))
-    halves = []
-    for sl in (slice(0, S // 2), slice(S // 2, S)):
-        n = torch.full((B,), S // 2, dtype=torch.int32)
-        o, m, l = decode_attention(torch.tensor(q),
-                                   torch.tensor(k[:, :, sl]).contiguous(),
-                                   torch.tensor(v[:, :, sl]).contiguous(),
-                                   n, return_stats=True)
-        jo, jm, jl = j_decode(jnp.asarray(q), jnp.asarray(k[:, :, sl]),
-                              jnp.asarray(v[:, :, sl]),
-                              jnp.full((B,), S // 2, jnp.int32),
+                            torch.tensor(v), torch.tensor(lens),
+                            return_stats=True)
+    j_full = j_decode(*map(jnp.asarray, (q, k, v, lens)), block_k=16,
+                      return_stats=True)
+    n_splits, chunk = _split_schedule(S, B * KVH)
+    parts = []
+    for i in range(n_splits):
+        sl = slice(i * chunk, min((i + 1) * chunk, S))
+        n_i = np.clip(np.minimum(lens, S) - i * chunk, 0, chunk)
+        ks, vs = (np.ascontiguousarray(x[:, :, sl]) for x in (k, v))
+        o, m, l = decode_attention(torch.tensor(q), torch.tensor(ks),
+                                   torch.tensor(vs),
+                                   torch.tensor(n_i.astype(np.int32)),
+                                   return_stats=True)
+        jo, jm, jl = j_decode(*map(jnp.asarray, (q, ks, vs,
+                                                 n_i.astype(np.int32))),
                               block_k=16, return_stats=True)
         assert m.shape == l.shape == (B, H, 1)
+        _close(o, jo, 2e-5)
         _close(m, jm, 2e-5)
         _close(l, jl, 2e-5)
-        halves.append([x.double().numpy() for x in (o, m, l)])
-    (o1, m1, l1), (o2, m2, l2) = halves
-    m = np.maximum(m1, m2)
-    l = l1 * np.exp(m1 - m) + l2 * np.exp(m2 - m)
-    o = (o1 * (l1 * np.exp(m1 - m)) + o2 * (l2 * np.exp(m2 - m))) / l
-    np.testing.assert_allclose(o, full.double().numpy(), atol=1e-5,
-                               rtol=1e-5)
+        parts.append((o, m, l))
+    got = _combine(parts)
+    for g, w, j, tol in zip(got, full, j_full, (1e-5, 1e-5, 1e-4)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=tol, rtol=tol)
+        _close(g, j, tol)
+    empty = lens == 0
+    assert torch.all(got[0][empty] == 0) and torch.all(got[2][empty] == 0)
+    assert torch.all(got[1][empty] == NEG_INF)
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 100, 130, 512, 4096,
+                               32768])
+@pytest.mark.parametrize("n_kv", [1, 2, 6, 32, 64, 256, 1024])
+def test_decode_split_schedule(S, n_kv):
+    """The split count is a function of the shapes: at least one split,
+    chunks of whole 32-row tiles that cover [0, S) with no chunk wholly
+    past S, and a grid of about two blocks per SM unless one chunk per
+    (b, kv head) already fills the card or the chunks are one tile."""
+    n_splits, chunk = _split_schedule(S, n_kv)
+    assert n_splits >= 1 and chunk >= TILE_ROWS and chunk % TILE_ROWS == 0
+    assert n_splits * chunk >= S > (n_splits - 1) * chunk
+    if S > chunk:   # split: the grid reaches the target
+        assert n_splits * n_kv >= TARGET_BLOCKS or chunk == TILE_ROWS
+    assert _split_schedule(S, n_kv) == (n_splits, chunk)
+
+
+def test_decode_split_schedule_at_the_serve_shape():
+    """At llama3.2-1b's decode shape the grid goes from 32 blocks (one per
+    (b, kv head)) to 8 splits of 64 rows: 256 blocks, about two per SM of
+    the H100's 132."""
+    B, H, KVH, S, D = SERVE_DECODE
+    assert _split_schedule(S, B * KVH) == (8, 64)
+    assert 8 * B * KVH >= TARGET_BLOCKS >= 2 * H100_SMS - 2 * 4
+
+
+def _flash_tc_emulation(q, k, v, *, causal, window, split_p=True, bk=64):
+    """The bf16 tensor-core flash kernel's roundings in plain PyTorch: bf16
+    q/k/v, fp32 scores (exact bf16 products, fp32 sums) scaled by
+    1/sqrt(D) after the product, an online softmax over kv tiles of
+    ``bk`` keys, P split into bf16 hi + lo (or, with ``split_p=False``,
+    rounded once to bf16) with both products summed in fp32, the output
+    rounded once to bf16."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    g = H // KVH
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    m = torch.full((B, H, Sq, 1), NEG_INF)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, D)
+    qi = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, bk):
+        ki = torch.arange(k0, min(k0 + bk, Skv))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * scale
+        ok = torch.ones(Sq, ki.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= qi >= ki
+        if window > 0:
+            ok &= qi - ki < window
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = vf[:, :, k0:k0 + bk]
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,causal,win", [
+    (1, 32, 8, 319, 319, 64, True, 0),    # llama3.2-1b prefill
+    # the shapes of tests/test_torch_cuda.py::test_flash_attention_matches_twin
+    (2, 4, 2, 96, 96, 32, True, 0),
+    (1, 4, 1, 64, 64, 16, False, 0),
+    (2, 8, 4, 80, 80, 32, True, 24),
+    (1, 2, 2, 64, 64, 64, True, 0),
+    (1, 32, 8, 300, 300, 64, True, 0),
+    (1, 4, 2, 37, 70, 128, False, 9),     # Sq != Skv
+    (1, 2, 1, 20, 20, 256, True, 3),
+])
+def test_flash_tensor_core_numerics_hold_the_bf16_gate(B, H, KVH, Sq, Skv,
+                                                       D, causal, win):
+    """The bf16 kernel's design, checked without a card: its roundings
+    stay within one bf16 rounding step (atol 1e-5, rtol 2^-7) of the fp32
+    twin and of the Pallas kernel (interpret mode).  At the serve
+    shape one bf16 rounding of P, the usual FA2 choice, breaks that
+    gate: the split of P into hi + lo is what holds it."""
+    arrs = [RNG.standard_normal(s).astype(np.float32)
+            for s in ((B, H, Sq, D), (B, KVH, Skv, D), (B, KVH, Skv, D))]
+    tq, tk, tv = (torch.tensor(a).bfloat16() for a in arrs)
+    got = _flash_tc_emulation(tq, tk, tv, causal=causal, window=win)
+    twin = attention_ref(tq, tk, tv, causal=causal, window=win)
+    torch.testing.assert_close(got.float(), twin.float(), **BF16_GATE)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    want = j_flash(jq, jk, jv, causal=causal, window=win, block_q=64,
+                   block_k=64)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_GATE)
+    if Sq == 319:
+        once = _flash_tc_emulation(tq, tk, tv, causal=causal, window=win,
+                                   split_p=False)
+        assert not torch.allclose(once.float(), twin.float(), **BF16_GATE)
 
 
 def test_masked_row_convention_follows_the_kernel():

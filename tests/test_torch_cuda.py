@@ -20,7 +20,7 @@ from repro_torch.core import store as TS
 from repro_torch.core.ref import KEY_MAX, KEY_MIN, TOMBSTONE
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.decode_attention import (
-    decode_attention,
+    _split_schedule, decode_attention,
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
@@ -202,6 +202,13 @@ def _close(got, want, tol):
     (1, 32, 8, 300, 300, 64, True, 0),      # llama3.2-1b prefill widths
     (1, 4, 2, 37, 70, 128, False, 9),       # ragged, Sq != Skv
     (1, 2, 1, 20, 20, 256, True, 3),        # widest head, >48 KB smem
+    # ragged tensor-core tiles: Sq, Skv not multiples of 64, D = 40 padded
+    # to 48 in shared memory, windows spanning kv tiles
+    (1, 4, 2, 100, 150, 40, True, 0),
+    (2, 8, 2, 130, 130, 40, True, 70),
+    (1, 4, 4, 200, 77, 40, False, 100),     # Skv < Sq, window, no causal
+    (1, 2, 1, 77, 77, 20, True, 0),         # D % 8 != 0: plain-load staging
+    (1, 2, 1, 90, 90, 200, True, 65),       # D > 128: 32-key tiles
 ])
 def test_flash_attention_matches_twin(card, B, H, KVH, Sq, Skv, D, causal,
                                       win, dtype):
@@ -249,3 +256,53 @@ def test_decode_attention_matches_twin(card, B, H, KVH, S, D, dtype):
     _close(got, want, TOL[dtype])
     _close(m, wm, 1e-5)
     _close(l, wl, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,S,D,lens", [
+    # the serve shape, 8 splits of 64 rows: empty in every split, ending
+    # mid-chunk, in the last chunk, past S
+    (4, 32, 8, 512, 64, (0, 100, 481, 700)),
+    (2, 8, 2, 300, 128, (299, 0)),          # 10 splits of one tile
+    (1, 32, 8, 96, 64, (64, )),             # ends on a chunk boundary
+])
+def test_decode_attention_split_kv_edges(card, B, H, KVH, S, D, lens,
+                                         dtype):
+    """The split-KV kernel and its combine where the lengths fall across
+    the splits; out, m and l against the twin; one launch counted per
+    call."""
+    assert _split_schedule(S, B * KVH)[0] > 1
+    g = torch.Generator(device="cpu").manual_seed(S + D + B)
+    q = torch.randn(B, H, D, generator=g).to(card, dtype)
+    k = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    v = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    n0 = _build.launch_counts["decode_attention"]
+    got, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["decode_attention"] == n0 + 1
+    want, wm, wl = decode_attention_ref(q, k, v, lens, return_stats=True)
+    empty = (lens == 0).cpu()
+    assert torch.all(got.cpu()[empty] == 0)
+    assert torch.all(l.cpu()[empty] == 0)
+    assert torch.all(m.cpu()[empty] == -1e30)
+    _close(got, want, TOL[dtype])
+    _close(m, wm, 1e-5)
+    _close(l, wl, 1e-4)
+
+
+def test_attention_launch_counts(card):
+    """Each wrapper call counts one launch, whatever the kernels it runs
+    (decode's split kernel and its combine count once)."""
+    q = torch.randn(1, 4, 70, 64, device=card, dtype=torch.bfloat16)
+    kv = torch.randn(1, 2, 70, 64, device=card, dtype=torch.bfloat16)
+    qd = torch.randn(4, 32, 64, device=card, dtype=torch.bfloat16)
+    kd = torch.randn(4, 8, 512, 64, device=card, dtype=torch.bfloat16)
+    lens = torch.tensor([512, 3, 0, 200], dtype=torch.int32, device=card)
+    _build.launch_counts.clear()
+    for _ in range(3):
+        flash_attention(q, kv, kv)
+        decode_attention(qd, kd, kd, lens)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"flash_attention": 3,
+                                          "decode_attention": 3}
