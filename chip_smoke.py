@@ -11,7 +11,12 @@ Phases, one line each (any failure exits non-zero):
   2. build     the CUDA kernels, from ``src/repro_torch/csrc``, in parallel
   3. parity    each kernel against its plain PyTorch twin on edge cases
                (the KEY_MAX - 1 pad query, cyclic chains, inverted
-               intervals, pvalid=False slots): exact equality
+               intervals, pvalid=False slots): exact equality.  The
+               locate kernels also on random levels at F = 4, 6, 8, 16
+               and depth 1 to 6, on rows and pools at L = 8 to 200,
+               ragged P, views 4 bytes off a 16-byte boundary (the 4-byte
+               variants), leaf ids -1 and past both ends, queries
+               KEY_MAX - 1 and KEY_MAX
   4. main      the single-device CRUD + range path through ``Uruv.apply``:
                prefill ``--prefill`` distinct keys of a 2,000,000-key
                universe in plans of 4096, then ``--plans`` mixed plans of
@@ -71,12 +76,24 @@ Phases, one line each (any failure exits non-zero):
                read it instead), and the attention rows add
                ``library_device_ms``, the same reading for the
                ``scaled_dot_product_attention`` call.
+               ``leaf_slots`` runs as the main path runs it, in place
+               (``leaf_slots_at``) at the widest call's inputs: no single
+               PyTorch call computes that, so its ``library_ms`` is null;
+               its rows form, the TPU kernel's signature, runs on the
+               leaves that call read, beside ``torch.searchsorted``
+               (``library_ms``, ``library_device_ms``), nested as
+               ``gathered_rows``.  The ``locate`` lines give one
+               ``backend.locate`` at the main path's widest inputs in the
+               two-launch form and composed over gathered rows (gather,
+               rank, gather, where): equal answers, wrapper and device
+               time, kernels per call.
                ``search_positions`` (the flat-directory rank, which no path
                of either package calls) runs through its kernel-level
                entry on the main store's directory, as it stands and
                padded to ``max_leaves``, with one fig9b plan's keys, and
-               must equal its twin, ``torch.searchsorted`` and the rank
-               of the multi-level index that replaced the flat directory
+               must equal its twin, ``torch.searchsorted`` (its
+               ``library_device_ms`` too) and the rank of the multi-level
+               index that replaced the flat directory
 
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -171,6 +188,24 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_trace(fn, calls: int) -> dict:
+    """The durations (us) of every kernel ``torch.profiler`` saw on the
+    card over ``calls`` calls of ``fn``, by kernel name."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_kernel.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    durs = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            durs.setdefault(e["name"], []).append(float(e["dur"]))
+    return durs
+
+
 def device_ms(fn, iters: int = 20) -> tuple:
     """Mean on-device kernel time of one call of ``fn``, and how it was
     read.  ``"profiler"``: from the kernels ``torch.profiler`` saw on the
@@ -186,20 +221,9 @@ def device_ms(fn, iters: int = 20) -> tuple:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    path = Path(__file__).resolve().parent / "build" / "chip_smoke_kernel.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
     calls = iters + 2
     for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(str(path))
-        durs = {}
-        for e in json.loads(path.read_text())["traceEvents"]:
-            if e.get("cat") == "kernel":
-                durs.setdefault(e["name"], []).append(float(e["dur"]))
+        durs = kernel_trace(fn, calls)
         per_call = {n: round(len(d) / calls) for n, d in durs.items()}
         if durs and min(per_call.values()) >= 1:
             return sum(per_call[n] * sum(d) / len(d)
@@ -238,7 +262,7 @@ def probe() -> str:
 # phase 3: kernel parity on edge cases
 # ---------------------------------------------------------------------------
 
-def parity_edge_cases(rng, dev) -> None:
+def parity_edge_cases(rng, edge_rng, dev) -> None:
     from repro_torch.core import index as I
     from repro_torch.core.ref import KEY_MAX, KEY_MIN
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
@@ -330,8 +354,95 @@ def parity_edge_cases(rng, dev) -> None:
         check(same(got, search_positions_ref(t(d), q)),
               f"search_positions != plain (n_dir={n_dir}, pad={n_pad})")
         n_cases += 1
+    n_cases += locate_edge_cases(edge_rng, dev)
     torch.cuda.synchronize()
     say("parity", cases=n_cases, result="exact")
+
+
+def locate_edge_cases(rng, dev) -> int:
+    """The locate kernels' variants and edges, exact against their twins;
+    returns the number of cases.  ``rng`` is a generator of its own, so
+    the phases after ``parity`` see the same seeded data as before these
+    cases existed."""
+    from repro_torch.core.ref import KEY_MAX, KEY_MIN
+    from repro_torch.kernels.uruv_search.ref import (
+        index_descend_ref, leaf_slots_at_ref, leaf_slots_ref)
+    from repro_torch.kernels.uruv_search.uruv_search import (
+        index_descend, leaf_slots, leaf_slots_at)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev).to(torch.int32)
+
+    def off16(a):
+        """int32 ``a`` on the card as a contiguous view 4 bytes past a
+        16-byte boundary (the kernels' 4-byte variant)."""
+        a = np.asarray(a, np.int32)
+        buf = torch.empty(a.size + 1, dtype=torch.int32, device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.as_tensor(a))
+        return view
+
+    n_cases = 0
+    # random levels (caps 4^(depth-1-l), child ids past both ends of the
+    # level below): 16-byte loads at F = 4, 8, 16, 4-byte at F = 6 and on
+    # levels 4 bytes off a 16-byte boundary; depth 1 to 6; ragged P;
+    # queries KEY_MAX - 1 and KEY_MAX
+    for F, depth, P, odd in ((4, 6, 4099, False), (6, 5, 4095, False),
+                             (8, 1, 1, False), (16, 6, 4096, False),
+                             (16, 3, 777, True), (6, 2, 33, True)):
+        caps = [4 ** (depth - 1 - l) for l in range(depth)]
+        keys, child = [], []
+        for l, cap in enumerate(caps):
+            k = np.sort(rng.integers(-1000, 1000, (cap, F)), axis=1)
+            k[rng.random((cap, F)) < 0.25] = KEY_MAX
+            below = caps[l - 1] if l else 5000
+            c = rng.integers(-below - 2, below + 3, (cap, F))
+            keys.append((off16 if odd else t)(np.sort(k, axis=1)))
+            child.append((off16 if odd else t)(c))
+        q = rng.integers(-1100, 1100, P)
+        q[:3] = [KEY_MAX - 1, KEY_MAX, KEY_MIN][:min(3, P)]
+        q = t(q.astype(np.int32))
+        got = index_descend(keys, child, q)
+        want = index_descend_ref(keys, child, q)
+        check(all(same(a, b) for a, b in zip(got, want)),
+              f"index_descend != plain (F={F}, depth={depth}, P={P}, "
+              f"offset={odd})")
+        n_cases += 1
+
+    # gathered rows and the in-place entry: one 16-byte chunk per lane
+    # (L = 8, 40, 64, 128), several (L = 200) and 4-byte loads (L = 33,
+    # and every pool again 4 bytes off a 16-byte boundary); leaf ids -1
+    # and past both ends; hits, misses, KEY_MAX - 1 and KEY_MAX; ragged P
+    ML = 4096
+    for P, L in ((5000, 64), (777, 8), (1000, 33), (4099, 40), (4095, 128),
+                 (300, 200)):
+        pool = np.sort(rng.integers(0, 5000, (ML, L)), axis=1)
+        pool[rng.random((ML, L)) < 0.1] = KEY_MAX
+        pool = np.sort(pool, axis=1).astype(np.int32)
+        vh = rng.integers(-1, 10**6, (ML, L)).astype(np.int32)
+        ids = rng.integers(-ML - 2, ML + 2, P).astype(np.int32)
+        ids[::5] = -1
+        rows = pool[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1)]
+        q = rng.integers(0, 5100, P).astype(np.int32)
+        hit = rng.random(P) < 0.6
+        q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+        q[:7] = KEY_MAX - 1
+        q[7:9] = KEY_MAX
+        qt, it = t(q), t(ids)
+        for put in (t, off16):
+            r = put(rows)
+            got = leaf_slots(r, qt)
+            check(all(same(a, b) for a, b in zip(got, leaf_slots_ref(r, qt))),
+                  f"leaf_slots != plain (P={P}, L={L}, put={put.__name__})")
+            lk, lv = put(pool), put(vh)
+            got = leaf_slots_at(lk, lv, it, qt)
+            want = leaf_slots_at_ref(lk, lv, it, qt)
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"leaf_slots_at != plain (P={P}, L={L}, "
+                  f"put={put.__name__})")
+            n_cases += 2
+
+    return n_cases
 
 
 # ---------------------------------------------------------------------------
@@ -453,8 +564,10 @@ class Recorder:
     """Keeps, per kernel, the inputs of the widest call the main path made
     (wrapping the names ``repro_torch.core.backend`` calls)."""
 
-    NAMES = {"index_descend": "index_descend", "leaf_slots": "leaf_slots",
+    NAMES = {"index_descend": "index_descend",
+             "leaf_slots_at": "leaf_slots_at", "locate": "locate",
              "versioned_read": "versioned_read", "range_scan": "_range_scan"}
+    QUERIES = {"index_descend": 2, "leaf_slots_at": 3, "locate": 3}
 
     def __init__(self, backend):
         self.backend = backend
@@ -472,8 +585,7 @@ class Recorder:
 
     def _wrap(self, name, fn):
         def rec(*args, **kw):
-            width = args[2].numel() if name == "index_descend" \
-                else args[0].numel()
+            width = args[self.QUERIES.get(name, 0)].numel()
             if width >= self.calls.get(name, (0,))[0]:
                 self.calls[name] = (width, args, kw)
             return fn(*args, **kw)
@@ -650,25 +762,90 @@ def _chain_touch(vhead, snap, ver_ts, ver_next, max_chain):
             _unique(final))
 
 
+def _bound(nbytes: float, nops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    HBM's rate and the int32 operations over the card's 32-bit rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / INT32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def gathered_locate(index, leaf_keys, leaf_vhead, queries):
+    """``backend.locate`` composed over gathered rows, as the JAX package
+    composes it: the descent, a [P, L] gather of leaf rows, the rank on
+    the gathered rows, then a clamp, a second gather and a ``where`` for
+    the version head."""
+    from repro_torch.kernels.uruv_search.uruv_search import (
+        index_descend, leaf_slots)
+
+    L = leaf_keys.shape[1]
+    bnode, bslot, leaf_id = index_descend(index.node_keys, index.node_child,
+                                          queries)
+    slot, exists = leaf_slots(leaf_keys[leaf_id], queries)
+    vhead = torch.where(exists, leaf_vhead[leaf_id, slot.clamp_max(L - 1)],
+                        -1)
+    return bnode, bslot, leaf_id, slot, exists, vhead
+
+
+def locate_report(main) -> dict:
+    """One ``backend.locate`` at the main path's widest inputs, in the two
+    forms: the two-launch one the store runs and the composition over
+    gathered rows (:func:`gathered_locate`).  Both must agree exactly;
+    each gets its wrapper time (``ms``), its device time (every kernel of
+    the call, the PyTorch gathers included) and its kernels per call from
+    a trace."""
+    from repro_torch.core import backend
+
+    _, a, _ = main["calls"]["locate"]
+    want = gathered_locate(*a)
+    got = backend.locate(*a)
+    check(all(same(x, y) for x, y in zip(got, want)),
+          "locate: the two-launch form != the gathered-rows form")
+    out = {}
+    for form, fn in (("two_launch", backend.locate),
+                     ("gathered_rows", gathered_locate)):
+        ms = time_ms(lambda: fn(*a))
+        dev_ms, dev_by = device_ms(lambda: fn(*a))
+        # launches per call of each kernel the trace holds (a trace can
+        # lose its last few launches, hence the rounding)
+        calls = 22
+        n_kern = sum(round(len(d) / calls) for d in
+                     kernel_trace(lambda: fn(*a), calls).values())
+        out[form] = dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                         kernels_per_call=n_kern)
+        say("locate", form=form, P=a[3].numel(), ms=f"{ms:.5f}",
+            device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
+            kernels_per_call=n_kern)
+    check(out["two_launch"]["kernels_per_call"] == 2,
+          "locate: not two kernels per call on the card")
+    return out
+
+
 def kernel_report(main) -> list:
+    from repro_torch.core._ops import jax_index
     from repro_torch.core.ref import KEY_MAX
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
     from repro_torch.kernels.uruv_range.uruv_range import range_scan
+    from repro_torch.kernels.uruv_search import uruv_search as US
     from repro_torch.kernels.uruv_search.ref import (
-        index_descend_ref, leaf_slots_ref)
-    from repro_torch.kernels.uruv_search.uruv_search import (
-        index_descend, leaf_slots)
+        index_descend_ref, leaf_slots_at_ref, leaf_slots_ref)
     from repro_torch.kernels.versioned_read.ref import versioned_read_ref
     from repro_torch.kernels.versioned_read.versioned_read import (
         versioned_read)
 
-    kern = {"index_descend": (index_descend, index_descend_ref),
-            "leaf_slots": (leaf_slots, leaf_slots_ref),
+    # the leaf_slots kernel runs on the main path through its in-place
+    # entry, leaf_slots_at, whose launches count under leaf_slots
+    kern = {"index_descend": (US.index_descend, index_descend_ref),
+            "leaf_slots": (US.leaf_slots_at, leaf_slots_at_ref),
             "versioned_read": (versioned_read, versioned_read_ref),
             "range_scan": (range_scan, range_scan_ref)}
+    calls = {n: n for n in kern}
+    calls["leaf_slots"] = "leaf_slots_at"
+    inputs = {n: main["calls"][c][1:] for n, c in calls.items()}
     rows = []
     for name, (fn, ref) in kern.items():
-        _, a, kw = main["calls"][name]
+        a, kw = inputs[name]
         outs = fn(*a, **kw)
         refs = ref(*a, **kw)
         outs = outs if isinstance(outs, tuple) else (outs,)
@@ -679,7 +856,8 @@ def kernel_report(main) -> list:
         ms = time_ms(lambda: fn(*a, **kw))
         dev_ms, dev_by = device_ms(lambda: fn(*a, **kw))
         plain_ms = time_ms(lambda: ref(*a, **kw), iters=5)
-        library_ms = None
+        library_ms = library_dev_ms = None
+        extra = {}
         if name == "index_descend":
             keys, child, q = a
             P, F = q.numel(), keys[0].shape[1]
@@ -688,13 +866,18 @@ def kernel_report(main) -> list:
             nops = 2 * P * len(keys) * F
             shape = f"P={P},D={len(keys)},F={F}"
         elif name == "leaf_slots":
-            r, q = a
-            P, L = r.shape
-            nbytes = 4 * P * L + 4 * P + 4 * P + P
+            # in place: the distinct leaf rows the queries read, one
+            # version head per hit; ids, queries in, slot, exists, vhead out
+            lk, lvh, ids, q = a
+            P, L = q.numel(), lk.shape[1]
+            n_rows = _unique(jax_index(ids, lk.shape[0]))
+            n_hits = int(outs[1].sum())
+            nbytes = 8 * P + n_rows * L * 4 + 4 * n_hits + 9 * P
             nops = P * L
-            library_ms = time_ms(
-                lambda: torch.searchsorted(r, q[:, None]))
-            shape = f"P={P},L={L}"
+            shape = f"P={P},ML={lk.shape[0]},L={L}"
+            extra["gathered_rows"] = gathered_rows_report(
+                lk[jax_index(ids, lk.shape[0]).long()], q, US.leaf_slots,
+                leaf_slots_ref)
         elif name == "versioned_read":
             vh, sn, vts, vnx, vval = a
             n_ts, n_next, n_val = _chain_touch(vh, sn, vts, vnx,
@@ -722,23 +905,49 @@ def kernel_report(main) -> list:
                       + 2 * 4 * Q * S * L)
             nops = Q * S * L * 4
             shape = f"Q={Q},S={S},L={L}"
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = nops / INT32_OPS_PER_S * 1e3
+        bound_ms, bound_by = _bound(nbytes, nops)
         src, replaces = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=main["counts"].get(name, 0), max_abs_err=err,
             ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
-            bound_ms=max(bound_bytes, bound_ops),
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=library_ms))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            library_device_ms=library_dev_ms, **extra))
         say("kernel", name=name, shape=shape, ms=f"{ms:.5f}",
             device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
-            plain_ms=f"{plain_ms:.5f}",
-            bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
             library_ms=library_ms if library_ms is None
-            else f"{library_ms:.5f}", max_abs_err=err)
+            else f"{library_ms:.5f}",
+            library_device_ms=library_dev_ms if library_dev_ms is None
+            else f"{library_dev_ms:.5f}", max_abs_err=err)
     return rows
+
+
+def gathered_rows_report(rows, q, fn, ref) -> dict:
+    """The leaf_slots kernel's rows form (the TPU kernel's signature) on
+    the leaf rows the main path's widest in-place call read, gathered:
+    exact against its twin, its times and bound, and ``torch.searchsorted``
+    on the same rows (``library_ms``, ``library_device_ms``)."""
+    outs, refs = fn(rows, q), ref(rows, q)
+    check(all(same(x, y) for x, y in zip(outs, refs)),
+          "leaf_slots (gathered rows) != plain at the main path's leaves")
+    err = max_abs_err(outs, refs)
+    ms = time_ms(lambda: fn(rows, q))
+    dev_ms, dev_by = device_ms(lambda: fn(rows, q))
+    plain_ms = time_ms(lambda: ref(rows, q), iters=5)
+    library_ms = time_ms(lambda: torch.searchsorted(rows, q[:, None]))
+    library_dev_ms, _ = device_ms(lambda: torch.searchsorted(rows, q[:, None]))
+    P, L = rows.shape
+    bound_ms, bound_by = _bound(4 * P * L + 4 * P + 4 * P + P, P * L)
+    say("kernel", name="leaf_slots", form="gathered_rows", shape=f"P={P},L={L}",
+        ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
+        plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
+        library_ms=f"{library_ms:.5f}",
+        library_device_ms=f"{library_dev_ms:.5f}", max_abs_err=err)
+    return dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_device_ms=library_dev_ms,
+                max_abs_err=err)
 
 
 def search_positions_report(main, api, rng) -> list:
@@ -786,27 +995,26 @@ def search_positions_report(main, api, rng) -> list:
         dev_ms, dev_by = device_ms(lambda d=d: search_positions(d, q))
         plain_ms = time_ms(lambda d=d: search_positions_ref(d, q), iters=5)
         library_ms = time_ms(lambda d=d: torch.searchsorted(d, q, right=True))
+        library_dev_ms, _ = device_ms(
+            lambda d=d: torch.searchsorted(d, q, right=True))
         n_dir, P = d.numel(), q.numel()
-        bound_bytes = (4 * n_dir + 2 * 4 * P) / HBM_BYTES_PER_S * 1e3
-        bound_ops = P * max(1, int(np.ceil(np.log2(n_dir)))) \
-            / INT32_OPS_PER_S * 1e3
+        bound_ms, bound_by = _bound(
+            4 * n_dir + 2 * 4 * P, P * max(1, int(np.ceil(np.log2(n_dir)))))
         err = max_abs_err((got[k],), (twin,))
         say("kernel", name="search_positions", directory=k,
             shape=f"ML={n_dir},P={P}", ms=f"{ms:.5f}",
             device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
-            plain_ms=f"{plain_ms:.5f}",
-            bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
-            library_ms=f"{library_ms:.5f}", max_abs_err=err,
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
+            library_ms=f"{library_ms:.5f}",
+            library_device_ms=f"{library_dev_ms:.5f}", max_abs_err=err,
             launches=launches)
         rows.append(dict(
             name="search_positions", route="cuda",
             source=KERNELS["search_positions"][0],
             replaces=KERNELS["search_positions"][1], launches=launches,
             max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
-            plain_ms=plain_ms,
-            bound_ms=max(bound_bytes, bound_ops),
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=library_ms))
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, library_device_ms=library_dev_ms))
     # the JSON line holds one row per kernel: the TPU kernel's own input,
     # the directory padded to max_leaves
     return rows[-1:]
@@ -1486,7 +1694,8 @@ def main() -> int:
     say("build", seconds=f"{max(secs.values()):.2f}",
         libraries=len(secs), dir=str(_build.BUILD_DIR))
     rng = np.random.default_rng(args.seed)
-    parity_edge_cases(rng, torch.device("cuda"))
+    parity_edge_cases(rng, np.random.default_rng(args.seed + 3),
+                      torch.device("cuda"))
     main_res = main_path(args, api, rng)
     profile_plans(main_res.pop("db"), api, rng)
     cpu_equals_cuda(args, api)
@@ -1498,6 +1707,7 @@ def main() -> int:
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))
     rows = (kernel_report(main_res) + attention_report(serve_res)
             + search_positions_report(main_res, api, rng))
+    locate_report(main_res)
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels.uruv_range.uruv_range import range_scan as _range_scan
 from repro_torch.kernels.uruv_search.uruv_search import (
-    index_descend, leaf_slots,
+    index_descend, leaf_slots_at,
 )
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
 
@@ -28,11 +28,11 @@ def descend(index, queries: torch.Tensor):
 def locate(index, leaf_keys, leaf_vhead, queries: torch.Tensor):
     """Full traversal: (bnode, bslot, leaf_id, slot, exists, vhead).
     ``(bnode, bslot)`` is the bottom index entry covering the query;
-    ``vhead`` is -1 where the key is absent."""
-    L = leaf_keys.shape[1]
+    ``vhead`` is -1 where the key is absent.  Two kernels on the card:
+    the in-leaf rank reads each query's leaf row in place."""
     bnode, bslot, leaf_id = descend(index, queries)
-    slot, exists = leaf_slots(leaf_keys[leaf_id], queries)
-    vhead = torch.where(exists, leaf_vhead[leaf_id, slot.clamp_max(L - 1)], -1)
+    slot, exists, vhead = leaf_slots_at(leaf_keys, leaf_vhead, leaf_id,
+                                        queries)
     return bnode, bslot, leaf_id, slot, exists, vhead
 
 

@@ -1,29 +1,65 @@
 // Uruv locate kernels for Hopper: the multi-level fat-node descent, the
-// in-leaf rank and the flat-directory rank.
+// in-leaf rank (on gathered rows, or in place on the leaf pool) and the
+// flat-directory rank.
 //
 // index_descend replaces the Pallas TPU kernel index_descend
 // (src/repro/kernels/uruv_search/uruv_search.py).  The TPU version pins
 // every index level in VMEM and descends a tile of queries with
-// vectorised row gathers.  Here one thread descends one query: per level
-// it reads the F keys of its node row (64 contiguous bytes at F = 16),
-// counts live keys <= q, and gathers one child id.  What bounds it is D
-// dependent gathers per query, i.e. memory latency; the upper levels are
-// a few KiB and stay in L2 (50 MB), and only the bottom level misses.
-// Enough independent queries (one per thread, thousands per launch) are
-// in flight to hide that latency.
+// vectorised row gathers.  Here what bounds the descent is latency: D
+// dependent row reads per query, a few hundred bytes in all.  So:
+//   * a group of G lanes takes one query; lane g reads chunk g of the
+//     node's key row AND chunk g of its child row in the same step (16
+//     bytes each at F = 16, G = 4: 8 queries per warp), so a level costs
+//     one round trip, not two;
+//   * the live-key count #(k <= q, k < KEY_MAX) is summed by xor shuffles
+//     inside the group, and the child at max(count - 1, 0) comes by a
+//     shuffle from the lane that loaded it;
+//   * P = 4096 queries x 4 lanes fill 128 blocks of 128 threads;
+//   * the next level's key and child pointers and capacity (indexed
+//     reads of the kernel's parameters, independent of the query) are
+//     read while this level's rows are in flight, so they do not add to
+//     the chain of dependent reads (5-9 % off the plain loop at the main
+//     store's shape).  Unrolling the loop over kMaxDepth measured 47 %
+//     slower than the plain loop, and templating it on the depth no
+//     faster than this (PERF.md keeps the readings);
+//   * no level is staged in shared memory: at the main store's shape
+//     (depth 6, warm L2) staging the top 3 or 4 levels with cp.async
+//     measured slower than reading them from L2, since the staging
+//     barrier keeps the root row's load (its address does not depend on
+//     the query) from overlapping the query's load.
+// VEC = 4 (16-byte loads) needs F % 4 == 0 and every level 16-byte
+// aligned; otherwise the wrapper picks VEC = 1 (4-byte loads), the same
+// kernel.  G = min(32, pow2ceil(F / VEC)); when a row has more chunks
+// than the group has lanes, the lanes loop over the chunks and the child
+// is read after the count (a second round trip).
 //
-// leaf_slots replaces the Pallas TPU kernel leaf_slots (same file).  One
-// warp takes one query: the warp reads the gathered leaf row coalesced
-// (L = 64 int32 is two 128-byte lines), each lane compares one key, and
-// __ballot_sync + __popc give the rank #(row < q).  It is bound by the
-// P * L * 4 bytes of gathered rows.
+// leaf_slots replaces the Pallas TPU kernel leaf_slots (same file), which
+// takes leaf rows that XLA gathered for it (a TPU kernel cannot gather a
+// row by a data-dependent index).  Here one template serves two entries:
+// on gathered rows [P, L] (the TPU kernel's signature), and in place on
+// the leaf pool, where query i loads row jax_index(leaf_id[i], ML) itself
+// and also returns that row's version head at the hit, -1 where the key
+// is absent (the JAX package's backend.locate with its two gathers
+// folded in).  A group of G = L / 4 lanes reads the row as 16-byte
+// vectors (two queries per warp at L = 64), and the in-place entry reads
+// the same chunk of the version-head row in the same step; the rank
+// #(row < q) is summed by shuffles over all L entries (unsorted rows
+// too), and the hit key and version head come by a shuffle from the lane
+// holding column min(slot, L - 1).  It is bound by latency too: the
+// leaf id, then one round trip for both rows.
+//
+// In both kernels, lanes past P follow the last query and write nothing,
+// so every lane of a warp takes part in every shuffle.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "uruv_common.cuh"
 
 namespace {
 
 constexpr int kMaxDepth = 32;
+constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Levels {
   const int* keys[kMaxDepth];   // level l: [cap[l], F], l = 0 is the bottom
@@ -31,53 +67,152 @@ struct Levels {
   int cap[kMaxDepth];
 };
 
-__global__ void index_descend_kernel(Levels lv, int depth, int fanout,
-                                     const int* __restrict__ queries, int n,
-                                     int* __restrict__ bnode,
-                                     int* __restrict__ bslot,
-                                     int* __restrict__ leaf) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int q = queries[i];
+// VEC consecutive ints at p (16-byte aligned when VEC == 4), by the
+// read-only path
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const int* p, int (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// v[e] without indexing the array by a register (that would spill it)
+template <int VEC>
+__device__ __forceinline__ int pick(const int (&v)[VEC], int e) {
+  int x = v[0];
+#pragma unroll
+  for (int k = 1; k < VEC; ++k) x = e == k ? v[k] : x;
+  return x;
+}
+
+template <int G>
+__device__ __forceinline__ int group_sum(int x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o, G);
+  return x;
+}
+
+// One level for the query q held by a group of G lanes (this is lane g):
+// returns the child id at slot = max(#(k <= q, k < KEY_MAX) - 1, 0) of
+// the node row at `keys` / `child` (F ints each, F % VEC == 0).
+template <int G, int VEC>
+__device__ __forceinline__ int descend_level(const int* keys,
+                                             const int* child, int F, int q,
+                                             int g, int& slot) {
+  const int nch = F / VEC;
+  const bool fused = nch <= G;  // one chunk per lane: child rides along
+  int cv[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) cv[e] = 0;
+  int cnt = 0;
+  for (int c = g; c < nch; c += G) {
+    int kv[VEC];
+    load_chunk<VEC>(keys + c * VEC, kv);
+    if (fused) load_chunk<VEC>(child + c * VEC, cv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      cnt += (kv[e] <= q) & (kv[e] < uruv::kKeyMax);  // KEY_MAX is padding
+  }
+  cnt = group_sum<G>(cnt);
+  slot = cnt > 0 ? cnt - 1 : 0;
+  if (fused)
+    return __shfl_sync(kFull, pick<VEC>(cv, slot % VEC), slot / VEC, G);
+  return __ldg(child + slot);
+}
+
+template <int G, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    index_descend_kernel(Levels lv, int depth, int F,
+                         const int* __restrict__ queries, int n,
+                         int* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int g = threadIdx.x % G;
+  const bool live = t / G < n;
+  const int i = live ? static_cast<int>(t / G) : n - 1;
+  const int q = __ldg(queries + i);
+
   int cur = 0;  // the root is node 0 of the top level
   int slot = 0;
   int nxt = 0;
+  const int* kp = lv.keys[depth - 1];
+  const int* cp = lv.child[depth - 1];
+  int cap = lv.cap[depth - 1];
   for (int l = depth - 1; l >= 0; --l) {
-    const long long row = static_cast<long long>(uruv::jax_index(cur, lv.cap[l])) * fanout;
-    const int* keys = lv.keys[l] + row;
-    int cnt = 0;
-    for (int j = 0; j < fanout; ++j) {
-      const int k = __ldg(keys + j);
-      cnt += (k <= q) & (k < uruv::kKeyMax);  // KEY_MAX is padding
-    }
-    slot = cnt > 0 ? cnt - 1 : 0;
-    nxt = __ldg(lv.child[l] + row + slot);
+    const long long row =
+        static_cast<long long>(uruv::jax_index(cur, cap)) * F;
+    const int* kr = kp + row;
+    const int* cr = cp + row;
+    // the next level's pointers do not depend on the query: read them
+    // while this level's rows are in flight
+    const int ln = l > 0 ? l - 1 : 0;
+    kp = lv.keys[ln];
+    cp = lv.child[ln];
+    cap = lv.cap[ln];
+    nxt = descend_level<G, VEC>(kr, cr, F, q, g, slot);
     if (l > 0) cur = nxt;
   }
-  bnode[i] = cur;
-  bslot[i] = slot;
-  leaf[i] = nxt;
+  if (live && g == 0) {
+    out[i] = cur;
+    out[static_cast<long long>(n) + i] = slot;
+    out[2LL * n + i] = nxt;
+  }
 }
 
-__global__ void leaf_slots_kernel(const int* __restrict__ rows,
-                                  const int* __restrict__ queries, int n,
-                                  int width, int* __restrict__ slot_out,
-                                  unsigned char* __restrict__ exists_out) {
-  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n) return;  // uniform across the warp
-  const int q = queries[warp];
-  const int* row = rows + warp * width;
+template <int G, int VEC, bool kAt>
+__global__ void __launch_bounds__(kThreads)
+    leaf_slots_kernel(const int* __restrict__ keys,
+                      const int* __restrict__ vhead,
+                      const int* __restrict__ ids, int n_rows, int W,
+                      const int* __restrict__ queries, int n,
+                      int* __restrict__ slot_out,
+                      unsigned char* __restrict__ exists_out,
+                      int* __restrict__ vhead_out) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int g = threadIdx.x % G;
+  const bool live = t / G < n;
+  const int i = live ? static_cast<int>(t / G) : n - 1;
+  const int q = __ldg(queries + i);
+  const long long row =
+      static_cast<long long>(kAt ? uruv::jax_index(__ldg(ids + i), n_rows)
+                                 : i) * W;
+  const int* kr = keys + row;
+  const int nch = W / VEC;
+  const bool fused = nch <= G;
+  int kv[VEC];
+  int vv[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0;
   int cnt = 0;
-  for (int base = 0; base < width; base += 32) {
-    const int j = base + lane;
-    const bool lt = j < width && __ldg(row + j) < q;
-    cnt += __popc(__ballot_sync(0xffffffffu, lt));
+  for (int c = g; c < nch; c += G) {
+    load_chunk<VEC>(kr + c * VEC, kv);
+    if (kAt && fused) load_chunk<VEC>(vhead + row + c * VEC, vv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) cnt += kv[e] < q;
   }
-  if (lane == 0) {
-    const int hit = __ldg(row + (cnt < width ? cnt : width - 1));
-    slot_out[warp] = cnt;
-    exists_out[warp] = (cnt < width) && (hit == q);
+  cnt = group_sum<G>(cnt);
+  const int at = cnt < W ? cnt : W - 1;
+  int hit;
+  int vh = -1;
+  if (fused) {
+    hit = __shfl_sync(kFull, pick<VEC>(kv, at % VEC), at / VEC, G);
+    if (kAt) vh = __shfl_sync(kFull, pick<VEC>(vv, at % VEC), at / VEC, G);
+  } else {
+    hit = __ldg(kr + at);
+    if (kAt) vh = __ldg(vhead + row + at);
+  }
+  const bool exists = cnt < W && hit == q;
+  if (live && g == 0) {
+    slot_out[i] = cnt;
+    exists_out[i] = exists;
+    if (kAt) vhead_out[i] = exists ? vh : -1;
   }
 }
 
@@ -103,43 +238,129 @@ __global__ void search_positions_kernel(const int* __restrict__ dir, int n_dir,
   pos[i] = count > 0 ? count - 1 : 0;
 }
 
+// lanes per query: the power of two covering a row's chunks, at most 32
+int group_for(int chunks) {
+  int g = 1;
+  while (g < chunks && g < 32) g <<= 1;
+  return g;
+}
+
+bool misaligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+}
+
+template <int G, int VEC>
+int launch_descend(const Levels& lv, int depth, int F, const int* queries,
+                   int n, int* out, cudaStream_t s) {
+  index_descend_kernel<G, VEC>
+      <<<uruv::blocks_for(static_cast<long long>(n) * G, kThreads), kThreads,
+         0, s>>>(lv, depth, F, queries, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int dispatch_descend(int G, const Levels& lv, int depth, int F,
+                     const int* queries, int n, int* out, cudaStream_t s) {
+  switch (G) {
+    case 1: return launch_descend<1, VEC>(lv, depth, F, queries, n, out, s);
+    case 2: return launch_descend<2, VEC>(lv, depth, F, queries, n, out, s);
+    case 4: return launch_descend<4, VEC>(lv, depth, F, queries, n, out, s);
+    case 8: return launch_descend<8, VEC>(lv, depth, F, queries, n, out, s);
+    case 16: return launch_descend<16, VEC>(lv, depth, F, queries, n, out, s);
+    default: return launch_descend<32, VEC>(lv, depth, F, queries, n, out, s);
+  }
+}
+
+template <int G, int VEC, bool kAt>
+int launch_slots(const int* keys, const int* vhead, const int* ids,
+                 int n_rows, int W, const int* queries, int n, int* slot,
+                 unsigned char* exists, int* vhead_out, cudaStream_t s) {
+  leaf_slots_kernel<G, VEC, kAt>
+      <<<uruv::blocks_for(static_cast<long long>(n) * G, kThreads), kThreads,
+         0, s>>>(keys, vhead, ids, n_rows, W, queries, n, slot, exists,
+                 vhead_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, bool kAt>
+int dispatch_slots(int G, const int* keys, const int* vhead, const int* ids,
+                   int n_rows, int W, const int* queries, int n, int* slot,
+                   unsigned char* exists, int* vhead_out, cudaStream_t s) {
+  switch (G) {
+    case 1: return launch_slots<1, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    case 2: return launch_slots<2, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    case 4: return launch_slots<4, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    case 8: return launch_slots<8, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    case 16: return launch_slots<16, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    default: return launch_slots<32, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+  }
+}
+
 }  // namespace
 
 extern "C" int uruv_search_positions(const int* dir, int n_dir,
                                      const int* queries, int n, int* pos,
                                      void* stream) {
-  constexpr int kThreads = 256;
-  search_positions_kernel<<<uruv::blocks_for(n, kThreads), kThreads, 0,
+  constexpr int kBlock = 256;
+  search_positions_kernel<<<uruv::blocks_for(n, kBlock), kBlock, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       dir, n_dir, queries, n, pos);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int uruv_index_descend(const long long* key_ptrs,
-                                  const long long* child_ptrs,
-                                  const int* caps, int depth, int fanout,
-                                  const int* queries, int n, int* bnode,
-                                  int* bslot, int* leaf, void* stream) {
-  if (depth < 1 || depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+// levels: depth key-level pointers, depth child-level pointers, depth
+// capacities (level 0, the bottom, first in each run).  out is [3, n]:
+// bottom node, bottom slot, leaf id.
+extern "C" int uruv_index_descend(const long long* levels, int depth,
+                                  int fanout, int vec, const int* queries,
+                                  int n, int* out, void* stream) {
+  if (depth < 1 || depth > kMaxDepth || fanout < 1 ||
+      (vec != 1 && vec != 4) || fanout % vec != 0 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv = {};
   for (int l = 0; l < depth; ++l) {
-    lv.keys[l] = reinterpret_cast<const int*>(key_ptrs[l]);
-    lv.child[l] = reinterpret_cast<const int*>(child_ptrs[l]);
-    lv.cap[l] = caps[l];
+    lv.keys[l] = reinterpret_cast<const int*>(levels[l]);
+    lv.child[l] = reinterpret_cast<const int*>(levels[depth + l]);
+    lv.cap[l] = static_cast<int>(levels[2 * depth + l]);
+    if (lv.cap[l] < 1 ||
+        (vec == 4 && (misaligned(lv.keys[l]) || misaligned(lv.child[l]))))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int kThreads = 256;
-  index_descend_kernel<<<uruv::blocks_for(n, kThreads), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      lv, depth, fanout, queries, n, bnode, bslot, leaf);
-  return static_cast<int>(cudaGetLastError());
+  const int G = group_for(fanout / vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return dispatch_descend<4>(G, lv, depth, fanout, queries, n, out, s);
+  return dispatch_descend<1>(G, lv, depth, fanout, queries, n, out, s);
 }
 
-extern "C" int uruv_leaf_slots(const int* rows, const int* queries, int n,
-                               int width, int* slot_out,
-                               unsigned char* exists_out, void* stream) {
-  constexpr int kThreads = 256;  // 8 queries per block
-  leaf_slots_kernel<<<uruv::blocks_for(32LL * n, kThreads), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      rows, queries, n, width, slot_out, exists_out);
-  return static_cast<int>(cudaGetLastError());
+// The in-leaf rank.  Gathered rows: keys is [n, width], ids, vhead and
+// vhead_out are null, and query i ranks row i.  In place: keys and vhead
+// are the leaf pool [n_rows, width], query i ranks row
+// jax_index(ids[i], n_rows), and vhead_out gets its version head at the
+// hit (-1 where the key is absent).
+extern "C" int uruv_leaf_slots(const int* keys, const int* vhead,
+                               const int* ids, int n_rows, int width,
+                               int vec, const int* queries, int n,
+                               int* slot_out, unsigned char* exists_out,
+                               int* vhead_out, void* stream) {
+  const bool at = ids != nullptr;
+  if (width < 1 || n < 1 || (vec != 1 && vec != 4) || width % vec != 0 ||
+      (vec == 4 && (misaligned(keys) || (at && misaligned(vhead)))) ||
+      (at && (vhead == nullptr || vhead_out == nullptr || n_rows < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = group_for(width / vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return at ? dispatch_slots<4, true>(G, keys, vhead, ids, n_rows, width,
+                                        queries, n, slot_out, exists_out,
+                                        vhead_out, s)
+              : dispatch_slots<4, false>(G, keys, vhead, ids, n_rows, width,
+                                         queries, n, slot_out, exists_out,
+                                         vhead_out, s);
+  return at ? dispatch_slots<1, true>(G, keys, vhead, ids, n_rows, width,
+                                      queries, n, slot_out, exists_out,
+                                      vhead_out, s)
+            : dispatch_slots<1, false>(G, keys, vhead, ids, n_rows, width,
+                                       queries, n, slot_out, exists_out,
+                                       vhead_out, s);
 }

@@ -124,10 +124,11 @@ def device_type(t) -> str:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of ``t``'s device, as a C pointer value."""
+    """The current CUDA stream of ``t``'s device, as a C pointer value
+    (read raw: no ``torch.cuda.Stream`` object is built per launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(kernel: str, device, dtype, **tensors) -> None:

@@ -41,6 +41,18 @@ def leaf_slots_ref(rows: torch.Tensor, queries: torch.Tensor):
     return slot, (slot < L) & (hit == queries)
 
 
+def leaf_slots_at_ref(leaf_keys: torch.Tensor, leaf_vhead: torch.Tensor,
+                      leaf_id: torch.Tensor, queries: torch.Tensor):
+    """:func:`leaf_slots_ref` on row ``jax_index(leaf_id, ML)`` of the leaf
+    pool [ML, L], plus that row's version head at the hit (-1 where the
+    key is absent): (slot, exists, vhead)."""
+    ML, L = leaf_keys.shape
+    r = jax_index(leaf_id, ML)
+    slot, exists = leaf_slots_ref(leaf_keys[r], queries)
+    vhead = torch.where(exists, leaf_vhead[r, slot.clamp_max(L - 1)], -1)
+    return slot, exists, vhead
+
+
 def search_positions_ref(dir_keys: torch.Tensor, queries: torch.Tensor):
     """``max(#(dir_keys <= q) - 1, 0)``: for a sorted directory, the
     reference's ``searchsorted(dir_keys, q, side="right") - 1`` clamped

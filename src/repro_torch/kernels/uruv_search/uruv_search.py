@@ -3,9 +3,12 @@ flat-directory rank.
 
 CUDA sources: ``repro_torch/csrc/uruv_search.cu`` (design notes there).
 They replace the Pallas TPU kernels ``index_descend``, ``leaf_slots`` and
-``search_positions`` of ``src/repro/kernels/uruv_search/uruv_search.py``.  A wrapper launches
-its kernel for a CUDA tensor and takes the plain twin in ``ref.py`` for
-a CPU tensor; any other device raises.
+``search_positions`` of ``src/repro/kernels/uruv_search/uruv_search.py``.
+``leaf_slots`` has two entries: on gathered rows (the TPU kernel's
+signature) and :func:`leaf_slots_at`, in place on the leaf pool, which
+the store's ``locate`` uses.  A wrapper launches its kernel for a CUDA
+tensor and takes the plain twin in ``ref.py`` for a CPU tensor; any other
+device raises.
 """
 
 # uruvlint: disable-file=layering-index; reason: this IS the flat-directory rank kernel (the JAX twin lives in the rule's exempt repro/kernels/uruv_search)
@@ -18,20 +21,27 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref, search_positions_ref,
+    index_descend_ref, leaf_slots_at_ref, leaf_slots_ref,
+    search_positions_ref,
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "uruv_index_descend": (ctypes.POINTER(ctypes.c_longlong),
-                           ctypes.POINTER(ctypes.c_longlong),
-                           ctypes.POINTER(ctypes.c_int), _I, _I, _P, _I,
-                           _P, _P, _P, _P),
-    "uruv_leaf_slots": (_P, _P, _I, _I, _P, _P, _P),
+    "uruv_index_descend": (ctypes.POINTER(ctypes.c_longlong), _I, _I, _I,
+                           _P, _I, _P, _P),
+    "uruv_leaf_slots": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P),
     "uruv_search_positions": (_P, _I, _P, _I, _P, _P),
 }
 _MAX_DEPTH = 32
+_I32 = torch.int32
+
+
+def _vec(width: int, *ptrs: int) -> int:
+    """4 (16-byte loads) when rows of ``width`` int32 and every base
+    pointer allow it, else 1: two variants of the same kernel."""
+    aligned = not any(p & 15 for p in ptrs)
+    return 4 if width % 4 == 0 and aligned else 1
 
 
 def index_descend(level_keys, level_child, queries: torch.Tensor):
@@ -47,29 +57,34 @@ def index_descend(level_keys, level_child, queries: torch.Tensor):
     if not 1 <= depth <= _MAX_DEPTH or len(level_child) != depth:
         raise ValueError(f"index_descend: depth {depth} not in [1, "
                          f"{_MAX_DEPTH}] or keys/child levels differ")
-    F = level_keys[0].shape[1]
-    _build.require("index_descend", queries.device, torch.int32,
-                   queries=queries,
-                   **{f"keys{l}": t for l, t in enumerate(level_keys)},
-                   **{f"child{l}": t for l, t in enumerate(level_child)})
-    for k, c in zip(level_keys, level_child):
-        if k.dim() != 2 or k.shape[1] != F or c.shape != k.shape:
-            raise ValueError("index_descend: every level must be [C_l, F]")
+    dev = queries.device
+    levels = (*level_keys, *level_child)
+    # one pass over the levels: the checks of _build.require, then shapes
+    for t in (queries, *levels):
+        if t.dtype is not _I32 or t.device != dev or not t.is_contiguous():
+            _build.require("index_descend", dev, _I32, queries=queries,
+                           **{f"level{i}": x for i, x in enumerate(levels)})
+    shapes = [t.shape for t in levels]
+    F = shapes[0][1] if len(shapes[0]) == 2 else 0
+    if F < 1 or queries.dim() != 1 or any(
+            len(s) != 2 or s[1] != F or s != shapes[depth + l]
+            for l, s in enumerate(shapes[:depth])):
+        raise ValueError("index_descend: every level must be [C_l, F] and "
+                         "queries [P]")
     P = queries.shape[0]
-    out = [torch.empty(P, dtype=torch.int32, device=queries.device)
-           for _ in range(3)]
+    out = torch.empty((3, P), dtype=_I32, device=dev)
     if P == 0:
-        return tuple(out)
+        return out.unbind(0)
+    ptrs = [t.data_ptr() for t in levels]
+    caps = [s[0] for s in shapes[:depth]]
+    buf = (ctypes.c_longlong * (3 * depth))(*ptrs, *caps)
     lib = _build.load("uruv_search", _SIGNATURES)
-    kp = (ctypes.c_longlong * depth)(*[t.data_ptr() for t in level_keys])
-    cp = (ctypes.c_longlong * depth)(*[t.data_ptr() for t in level_child])
-    caps = (ctypes.c_int * depth)(*[t.shape[0] for t in level_keys])
     _build.launch_counts["index_descend"] += 1
-    rc = lib.uruv_index_descend(kp, cp, caps, depth, F, queries.data_ptr(),
-                                P, out[0].data_ptr(), out[1].data_ptr(),
-                                out[2].data_ptr(), _build.stream_ptr(queries))
+    rc = lib.uruv_index_descend(buf, depth, F, _vec(F, *ptrs),
+                                queries.data_ptr(), P, out.data_ptr(),
+                                _build.stream_ptr(queries))
     _build.check(rc, "index_descend")
-    return tuple(out)
+    return out.unbind(0)
 
 
 def leaf_slots(rows: torch.Tensor, queries: torch.Tensor):
@@ -77,23 +92,62 @@ def leaf_slots(rows: torch.Tensor, queries: torch.Tensor):
     row[slot] == q`` for gathered leaf rows int32 [P, L]."""
     if _build.device_type(rows) == "cpu":
         return leaf_slots_ref(rows, queries)
-    _build.require("leaf_slots", rows.device, torch.int32,
-                   rows=rows, queries=queries)
-    P, L = rows.shape
-    if queries.shape != (P,) or L < 1:
+    _build.require("leaf_slots", rows.device, _I32, rows=rows,
+                   queries=queries)
+    if rows.dim() != 2 or queries.shape != rows.shape[:1] or rows.shape[1] < 1:
         raise ValueError(f"leaf_slots: rows {tuple(rows.shape)} vs "
                          f"queries {tuple(queries.shape)}")
-    slot = torch.empty(P, dtype=torch.int32, device=rows.device)
+    P, L = rows.shape
+    slot = torch.empty(P, dtype=_I32, device=rows.device)
     exists = torch.empty(P, dtype=torch.bool, device=rows.device)
     if P == 0:
         return slot, exists
     lib = _build.load("uruv_search", _SIGNATURES)
     _build.launch_counts["leaf_slots"] += 1
-    rc = lib.uruv_leaf_slots(rows.data_ptr(), queries.data_ptr(), P, L,
-                             slot.data_ptr(), exists.data_ptr(),
+    rc = lib.uruv_leaf_slots(rows.data_ptr(), None, None, P, L,
+                             _vec(L, rows.data_ptr()), queries.data_ptr(),
+                             P, slot.data_ptr(), exists.data_ptr(), None,
                              _build.stream_ptr(rows))
     _build.check(rc, "leaf_slots")
     return slot, exists
+
+
+def leaf_slots_at(leaf_keys: torch.Tensor, leaf_vhead: torch.Tensor,
+                  leaf_id: torch.Tensor, queries: torch.Tensor):
+    """The in-leaf rank in place on the leaf pool: for query i, row
+    ``r = jax_index(leaf_id[i], ML)`` of ``leaf_keys`` int32 [ML, L] gives
+    ``slot = #(row < q)`` and ``exists = slot < L & row[slot] == q``, and
+    ``vhead = leaf_vhead[r, min(slot, L - 1)]`` where it exists, else -1.
+    The same kernel as :func:`leaf_slots` (its launches count there),
+    without the [P, L] gather of rows."""
+    if _build.device_type(queries) == "cpu":
+        return leaf_slots_at_ref(leaf_keys, leaf_vhead, leaf_id, queries)
+    _build.require("leaf_slots_at", queries.device, _I32,
+                   leaf_keys=leaf_keys, leaf_vhead=leaf_vhead,
+                   leaf_id=leaf_id, queries=queries)
+    if (leaf_keys.dim() != 2 or leaf_vhead.shape != leaf_keys.shape
+            or min(leaf_keys.shape) < 1 or queries.dim() != 1
+            or leaf_id.shape != queries.shape):
+        raise ValueError(f"leaf_slots_at: pools {tuple(leaf_keys.shape)} / "
+                         f"{tuple(leaf_vhead.shape)}, leaf_id "
+                         f"{tuple(leaf_id.shape)}, queries "
+                         f"{tuple(queries.shape)}")
+    ML, L = leaf_keys.shape
+    P = queries.shape[0]
+    out = torch.empty((2, P), dtype=_I32, device=queries.device)
+    slot, vhead = out.unbind(0)
+    exists = torch.empty(P, dtype=torch.bool, device=queries.device)
+    if P == 0:
+        return slot, exists, vhead
+    lk, lv = leaf_keys.data_ptr(), leaf_vhead.data_ptr()
+    lib = _build.load("uruv_search", _SIGNATURES)
+    _build.launch_counts["leaf_slots"] += 1
+    rc = lib.uruv_leaf_slots(lk, lv, leaf_id.data_ptr(), ML, L,
+                             _vec(L, lk, lv), queries.data_ptr(), P,
+                             slot.data_ptr(), exists.data_ptr(),
+                             vhead.data_ptr(), _build.stream_ptr(queries))
+    _build.check(rc, "leaf_slots_at")
+    return slot, exists, vhead
 
 
 def search_positions(dir_keys: torch.Tensor, queries: torch.Tensor):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import repro_torch.api as T
+from repro_torch.core import backend as TB
 from repro_torch.core import index as TI
 from repro_torch.core import store as TS
 from repro_torch.core.ref import KEY_MAX, KEY_MIN, TOMBSTONE
@@ -30,10 +31,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref, search_positions_ref,
+    index_descend_ref, leaf_slots_at_ref, leaf_slots_ref, search_positions_ref,
 )
 from repro_torch.kernels.uruv_search.uruv_search import (
-    index_descend, leaf_slots, search_positions,
+    index_descend, leaf_slots, leaf_slots_at, search_positions,
 )
 from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
@@ -105,6 +106,178 @@ def test_kernels_match_twins(card):
             _t(rng.integers(-1, MV, MV), card), _t(val, card))
     _eq(range_scan(*args, max_chain=8), range_scan_ref(*args, max_chain=8))
     torch.cuda.synchronize()
+
+
+def _unaligned(a, dev):
+    """``a`` as int32 on ``dev``, contiguous but 4 bytes past a 16-byte
+    boundary (a view at an offset)."""
+    a = np.asarray(a, np.int32)
+    buf = torch.empty(a.size + 1, dtype=torch.int32, device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def _random_levels(rng, F, depth, dev, *, unaligned=False):
+    """Random index levels, level 0 the bottom, caps 4^(depth-1-l): sorted
+    rows with KEY_MAX padding, child ids past both ends of the level below
+    (the kernels clamp them as the JAX gathers do)."""
+    caps = [4 ** (depth - 1 - l) for l in range(depth)]
+    keys, child = [], []
+    for l, cap in enumerate(caps):
+        k = np.sort(rng.integers(-1000, 1000, (cap, F)), axis=1)
+        k[rng.random((cap, F)) < 0.25] = KEY_MAX
+        k = np.sort(k, axis=1).astype(np.int32)
+        below = caps[l - 1] if l > 0 else 5000
+        c = rng.integers(-below - 2, below + 3, (cap, F)).astype(np.int32)
+        make = (lambda a: _unaligned(a, dev)) if unaligned else (
+            lambda a: _t(a, dev))
+        keys.append(make(k))
+        child.append(make(c))
+    return keys, child
+
+
+def _queries(rng, P, dev):
+    q = rng.integers(-1100, 1100, P).astype(np.int32)
+    q[: min(3, P)] = [KEY_MAX - 1, KEY_MAX, KEY_MIN][: min(3, P)]
+    return _t(q, dev)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("F", [4, 6, 8, 16])
+def test_index_descend_matches_twin(card, F, depth):
+    """Both variants (16-byte loads at F = 4, 8, 16; 4-byte at F = 6) at
+    every depth, ragged and whole P: bit for bit against the twin, one
+    launch per call."""
+    rng = np.random.default_rng(F * 10 + depth)
+    keys, child = _random_levels(rng, F, depth, card)
+    P = (1, 4095, 4096, 4099)[depth % 4]
+    q = _queries(rng, P, card)
+    n0 = _build.launch_counts["index_descend"]
+    got = index_descend(keys, child, q)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["index_descend"] == n0 + 1
+    _eq(got, index_descend_ref(keys, child, q))
+
+
+@pytest.mark.parametrize("F,P", [(16, 4099), (8, 1), (4, 4096), (6, 777)])
+def test_index_descend_unaligned_levels(card, F, P):
+    """Levels that are views 4 bytes past a 16-byte boundary take the
+    4-byte variant: the same answers."""
+    rng = np.random.default_rng(F + P)
+    keys, child = _random_levels(rng, F, 4, card, unaligned=True)
+    q = _queries(rng, P, card)
+    _eq(index_descend(keys, child, q), index_descend_ref(keys, child, q))
+
+
+def _rows_case(rng, P, L):
+    rows = np.sort(rng.integers(0, 5000, (P, L)), axis=1)
+    rows[rng.random((P, L)) < 0.1] = KEY_MAX
+    rows = np.sort(rows, axis=1).astype(np.int32)
+    q = rng.integers(0, 5100, P).astype(np.int32)
+    hit = rng.random(P) < 0.5
+    q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+    q[: min(2, P)] = [KEY_MAX - 1, KEY_MAX][: min(2, P)]
+    return rows, q
+
+
+@pytest.mark.parametrize("L,P", [
+    (1, 4099), (8, 4096), (33, 4095), (40, 1), (64, 4096), (64, 4099),
+    (128, 300), (200, 777),
+])
+def test_leaf_slots_matches_twin(card, L, P):
+    """Gathered rows: one chunk per lane (L = 8, 40, 64, 128) and several
+    (L = 33 scalar, 200), ragged P; and the same rows 4 bytes off a
+    16-byte boundary."""
+    rng = np.random.default_rng(L * 7 + P)
+    rows, q = _rows_case(rng, P, L)
+    qt = _t(q, card)
+    for r in (_t(rows, card), _unaligned(rows, card)):
+        n0 = _build.launch_counts["leaf_slots"]
+        got = leaf_slots(r, qt)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["leaf_slots"] == n0 + 1
+        _eq(got, leaf_slots_ref(r, qt))
+
+
+@pytest.mark.parametrize("L,P", [
+    (8, 4099), (40, 4095), (64, 4096), (64, 1), (128, 777), (33, 500),
+    (200, 300),
+])
+def test_leaf_slots_at_matches_twin(card, L, P):
+    """In place on a pool: ids -1 and past both ends, hits and misses,
+    KEY_MAX - 1 and KEY_MAX; aligned and unaligned pools; one launch,
+    counted under leaf_slots."""
+    rng = np.random.default_rng(L * 13 + P)
+    ML = 300
+    pool, _ = _rows_case(rng, ML, L)
+    vh = rng.integers(-1, 10**6, (ML, L)).astype(np.int32)
+    ids = rng.integers(-ML - 2, ML + 2, P).astype(np.int32)
+    ids[::5] = -1
+    rows = pool[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1)]
+    q = rng.integers(0, 5100, P).astype(np.int32)
+    hit = rng.random(P) < 0.6
+    q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+    q[: min(2, P)] = [KEY_MAX - 1, KEY_MAX][: min(2, P)]
+    it, qt = _t(ids, card), _t(q, card)
+    for lk, lv in ((_t(pool, card), _t(vh, card)),
+                   (_unaligned(pool, card), _unaligned(vh, card))):
+        n0 = _build.launch_counts["leaf_slots"]
+        got = leaf_slots_at(lk, lv, it, qt)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["leaf_slots"] == n0 + 1
+        _eq(got, leaf_slots_at_ref(lk, lv, it, qt))
+
+
+def test_locate_is_two_launches(card):
+    """One ``backend.locate`` on the card launches exactly one
+    index_descend and one leaf_slots (in place) and nothing else of the
+    port's, and equals ``locate`` on the CPU."""
+    rng = np.random.default_rng(2)
+    ML, L, n_sep = 2048, 64, 1500
+    seps = np.sort(rng.choice(10**7, n_sep, replace=False)).astype(np.int32)
+    seps[0] = KEY_MIN
+    pad_k = np.full(ML, KEY_MAX, np.int32)
+    pad_k[:n_sep] = seps
+    pad_l = np.full(ML, -1, np.int32)
+    pad_l[:n_sep] = rng.permutation(ML)[:n_sep]
+    lk = np.sort(rng.integers(0, 10**7, (ML, L)), axis=1).astype(np.int32)
+    lvh = rng.integers(-1, 10**6, (ML, L)).astype(np.int32)
+    q = rng.integers(-10, 10**7, 4096).astype(np.int32)
+    q[:100] = lk[rng.integers(0, ML, 100), 5]
+    out = {}
+    for dev in ("cpu", card):
+        idx = TI.build(TI.index_config(ML, 16), ML, _t(pad_k, dev),
+                       _t(pad_l, dev), n_sep)
+        args = (_t(lk, dev), _t(lvh, dev), _t(q, dev))
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out[str(dev)] = TB.locate(idx, *args)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        assert counts == ({} if dev == "cpu" else
+                          {"index_descend": 1, "leaf_slots": 1})
+    _eq(out["cuda"], out["cpu"])
+
+
+def test_stream_ptr_is_the_current_stream(card):
+    """The wrappers read the current stream through torch's raw getter;
+    it must name the same stream as the public API, on the default
+    stream and inside a ``torch.cuda.stream`` context, or every launch
+    would go to the wrong stream."""
+    q = _t(np.arange(8, dtype=np.int32), card)
+    want = torch.cuda.current_stream(q.device).cuda_stream
+    assert _build.stream_ptr(q) == want
+    side = torch.cuda.Stream(device=q.device)
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(q) == side.cuda_stream
+        assert _build.stream_ptr(q) == (
+            torch.cuda.current_stream(q.device).cuda_stream)
+        got = search_positions(_t([0, 3, 5], card), q)
+    side.synchronize()
+    _eq(got, search_positions_ref(_t([0, 3, 5], card), q))
+    assert _build.stream_ptr(q) == want
 
 
 @pytest.mark.parametrize("n_dir,n_q", [

@@ -10,11 +10,14 @@ a card: ``tests/test_torch_cuda.py`` holds them against the same twins
 there.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.core import backend as JB
 from repro.core import index as JI
 from repro.core.ref import KEY_MAX
 from repro.kernels.uruv_range.ref import range_scan_ref as j_range_scan_ref
@@ -34,15 +37,17 @@ from repro.kernels.versioned_read.versioned_read import (
     versioned_read as j_versioned_read,
 )
 
+from repro_torch.core import backend as TB
 from repro_torch.core import index as TI
 from repro_torch.kernels import _build
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
+from repro_torch.kernels.uruv_search import uruv_search as TS
 from repro_torch.kernels.uruv_search.ref import (
-    index_descend_ref, leaf_slots_ref, search_positions_ref,
+    index_descend_ref, leaf_slots_at_ref, leaf_slots_ref, search_positions_ref,
 )
 from repro_torch.kernels.uruv_search.uruv_search import (
-    index_descend, leaf_slots, search_positions,
+    index_descend, leaf_slots, leaf_slots_at, search_positions,
 )
 from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
@@ -128,6 +133,100 @@ def test_leaf_slots_twin_matches_jax(P, L):
     want = j_leaf_slots_ref(jnp.asarray(rows), jnp.asarray(q))
     _eq(leaf_slots(_t(rows), _t(q)), want)
     _eq(leaf_slots_ref(_t(rows), _t(q)), want)
+
+
+def _pool_case(rng, L, n_sep=120, ML=256, n_q=300):
+    """A random leaf pool [ML, L] (sorted rows, KEY_MAX-padded tails),
+    version heads, and an index over ``n_sep`` separators whose leaf ids
+    include -1; queries hit pool keys, miss them, and include KEY_MAX - 1
+    and KEY_MAX."""
+    lk = np.sort(rng.integers(0, 10**6, (ML, L)), axis=1).astype(np.int32)
+    lk[rng.random((ML, L)) < 0.2] = KEY_MAX
+    lk = np.sort(lk, axis=1)
+    lvh = rng.integers(-1, 5000, (ML, L)).astype(np.int32)
+    seps = np.sort(rng.choice(10**6, n_sep, replace=False)).astype(np.int32)
+    seps[0] = JI.KEY_MIN
+    pad_k = np.full(ML, KEY_MAX, np.int32)
+    pad_k[:n_sep] = seps
+    pad_l = np.full(ML, -1, np.int32)
+    pad_l[:n_sep] = rng.integers(-1, ML, n_sep)
+    pad_l[:n_sep:7] = -1
+    q = np.concatenate([
+        rng.integers(-10, 10**6 + 10, n_q), lk[rng.integers(0, ML, 40), 0],
+        lk[rng.integers(0, ML, 40), L // 2], [KEY_MAX - 1, KEY_MAX],
+    ]).astype(np.int32)
+    jidx = JI.build(JI.index_config(ML, 8), ML, pad_k, pad_l,
+                    jnp.asarray(n_sep, jnp.int32))
+    tidx = TI.build(TI.index_config(ML, 8), ML, _t(pad_k), _t(pad_l), n_sep)
+    return jidx, tidx, lk, lvh, q
+
+
+@functools.lru_cache(maxsize=None)
+def _locate_case(L):
+    """One pool case per width, shared by the tests below so the JAX side
+    builds its index once per width."""
+    return _pool_case(np.random.default_rng(L + 5), L)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_locate(L, backend):
+    """The JAX package's ``locate`` on :func:`_locate_case`, as numpy:
+    compiled once per (width, backend) for the module."""
+    jidx, _, lk, lvh, q = _locate_case(L)
+    return tuple(np.asarray(x) for x in JB.locate(
+        jidx, jnp.asarray(lk), jnp.asarray(lvh), jnp.asarray(q),
+        backend=backend))
+
+
+@pytest.mark.parametrize("backend", [JB.XLA, JB.PALLAS_INTERPRET])
+@pytest.mark.parametrize("L", [8, 16, 40])
+def test_leaf_slots_at_matches_jax_locate(backend, L):
+    """The in-place rank (wrapper on the CPU, and its twin) against the
+    JAX package's ``locate`` with its two gathers: the same (slot, exists,
+    vhead) for leaf ids from the descent, -1 among them."""
+    _, tidx, lk, lvh, q = _locate_case(L)
+    want = _jax_locate(L, backend)
+    _, _, leaf_id = index_descend(tidx.node_keys, tidx.node_child, _t(q))
+    _eq(leaf_id, want[2])
+    assert int((leaf_id == -1).sum()) > 0
+    args = (_t(lk), _t(lvh), leaf_id, _t(q))
+    _eq(leaf_slots_at(*args), want[3:])
+    _eq(leaf_slots_at_ref(*args), want[3:])
+
+
+@pytest.mark.parametrize("L", [8, 16, 40])
+def test_locate_matches_jax_locate(L):
+    """The port's ``backend.locate`` on the CPU against the JAX package's
+    ``locate``: all six outputs, exactly."""
+    _, tidx, lk, lvh, q = _locate_case(L)
+    _eq(TB.locate(tidx, _t(lk), _t(lvh), _t(q)), _jax_locate(L, JB.XLA))
+
+
+def test_leaf_slots_at_ids_follow_jax_index():
+    """Out-of-range leaf ids wrap once and clamp, as the JAX gathers do."""
+    rng = np.random.default_rng(9)
+    ML, L, P = 16, 8, 64
+    lk = np.sort(rng.integers(0, 100, (ML, L)), axis=1).astype(np.int32)
+    lvh = rng.integers(-1, 500, (ML, L)).astype(np.int32)
+    ids = rng.integers(-ML - 3, ML + 3, P).astype(np.int32)
+    q = lk[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1), 3]
+    rows = np.asarray(jnp.asarray(lk)[jnp.asarray(ids)])
+    want_slot, want_ex = j_leaf_slots_ref(jnp.asarray(rows), jnp.asarray(q))
+    vrows = np.asarray(jnp.asarray(lvh)[jnp.asarray(ids)])
+    at = np.minimum(np.asarray(want_slot), L - 1)
+    want_vh = np.where(want_ex, vrows[np.arange(P), at], -1)
+    got = leaf_slots_at(_t(lk), _t(lvh), _t(ids), _t(q))
+    _eq(got, (want_slot, want_ex, want_vh))
+    assert bool(got[1].all())
+
+
+def test_descend_variant_follows_width_and_alignment():
+    """16-byte loads need rows of a multiple of 4 int32 and 16-byte
+    aligned bases; anything else takes the 4-byte variant."""
+    assert TS._vec(16, 0x1000, 0x2000) == 4
+    assert TS._vec(6, 0x1000, 0x2000) == 1
+    assert TS._vec(16, 0x1000, 0x2004) == 1
+    assert TS._vec(40, 0x1000) == 4
 
 
 @pytest.mark.parametrize("MV,P,chain", [(128, 64, 4), (1024, 200, 16)])
@@ -252,6 +351,7 @@ def test_wrappers_count_no_launch_on_cpu():
     versioned_read(_t([-1, 0]), _t([3, 3]), _t([1]), _t([-1]), _t([7]),
                    max_chain=2)
     search_positions(_t([-5, 3, 9]), _t([0, 3, 100]))
+    leaf_slots_at(rows, rows, _t([0, -1, 3, 2]), _t([0, 5, 9, 40]))
     assert dict(_build.launch_counts) == before
 
 
