@@ -21,9 +21,10 @@ Phases, one line each (any failure exits non-zero):
                prefill ``--prefill`` distinct keys of a 2,000,000-key
                universe in plans of 4096, then ``--plans`` mixed plans of
                the paper's fig9b mix (90% search, 5% update, 5% range of
-               size 1000) plus ranges and lookups under a held snapshot;
-               every result is checked against a host-side oracle, then
-               ``check_invariants`` and ``live_items``
+               size 1000) plus ranges, lookups and 8 ``scan_page`` passes
+               (the standalone ``versioned_read``'s path) under a held
+               snapshot; every result is checked against a host-side
+               oracle, then ``check_invariants`` and ``live_items``
   4b. profile two more fig9b plans under ``torch.profiler`` (device
                activity): wall time, device busy time, idle share,
                kernels and device-to-host copies per plan, top kernels
@@ -76,24 +77,36 @@ Phases, one line each (any failure exits non-zero):
                read it instead), and the attention rows add
                ``library_device_ms``, the same reading for the
                ``scaled_dot_product_attention`` call.
-               ``leaf_slots`` runs as the main path runs it, in place
-               (``leaf_slots_at``) at the widest call's inputs: no single
-               PyTorch call computes that, so its ``library_ms`` is null;
-               its rows form, the TPU kernel's signature, runs on the
-               leaves that call read, beside ``torch.searchsorted``
-               (``library_ms``, ``library_device_ms``), nested as
-               ``gathered_rows``.  The ``locate`` lines give one
-               ``backend.locate`` at the main path's widest inputs in the
-               two-launch form and composed over gathered rows (gather,
-               rank, gather, where): equal answers, wrapper and device
-               time, kernels per call.
+               Each row's ``launches`` is the main path's count.  The main
+               path runs the ``leaf_slots`` kernel only in place, through
+               the fused entry ``leaf_slots_at`` (the rank with each hit's
+               chain walked in its launch): row ``leaf_slots_read``, at the
+               widest call's inputs; no single PyTorch call computes it,
+               so its ``library_ms`` is null.  Row ``leaf_slots`` is the
+               rows form, the TPU kernel's signature, at its kernel-level
+               entry on the leaf rows that call read, gathered, beside
+               ``torch.searchsorted`` (``library_ms``,
+               ``library_device_ms``); the main path launches it 0 times.
+               The chain-walking rows (``leaf_slots_read``,
+               ``versioned_read``, ``range_scan``) add
+               ``latency_floor_ms``: the longest chain of dependent round
+               trips their inputs need times the card's HBM load latency,
+               read first by a pointer chase over 256 MiB
+               (``csrc/latency_probe.cu``).  The ``locate`` lines give one
+               lookup, ``backend.locate`` at the main path's widest
+               inputs, in two forms, fused and composed over gathered rows
+               as the JAX package composes it (descent, gather, rank,
+               gather, where, snapshot copy, ``versioned_read``): equal
+               answers, wrapper and device time, kernels per call, the
+               fused form exactly 2.
                ``search_positions`` (the flat-directory rank, which no path
-               of either package calls) runs through its kernel-level
-               entry on the main store's directory, as it stands and
-               padded to ``max_leaves``, with one fig9b plan's keys, and
-               must equal its twin, ``torch.searchsorted`` (its
-               ``library_device_ms`` too) and the rank of the multi-level
-               index that replaced the flat directory
+               of either package calls: 0 launches) runs through its
+               kernel-level entry (``side_launches``) on the main store's
+               directory, as it stands and padded to ``max_leaves``, with
+               one fig9b plan's keys, and must equal its twin,
+               ``torch.searchsorted`` (its ``library_device_ms`` too) and
+               the rank of the multi-level index that replaced the flat
+               directory
 
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -133,6 +146,11 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                       "src/repro/kernels/uruv_search/uruv_search.py:126"),
     "leaf_slots": ("src/repro_torch/csrc/uruv_search.cu",
                    "src/repro/kernels/uruv_search/uruv_search.py:172"),
+    # leaf_slots_at with a snapshot: the in-leaf rank with the hit's
+    # version chain walked in the same launch (the lookup's versioned_read)
+    "leaf_slots_read": (
+        "src/repro_torch/csrc/uruv_search.cu",
+        "src/repro/kernels/versioned_read/versioned_read.py:52"),
     "versioned_read": ("src/repro_torch/csrc/versioned_read.cu",
                        "src/repro/kernels/versioned_read/versioned_read.py:52"),
     "range_scan": ("src/repro_torch/csrc/uruv_range.cu",
@@ -146,9 +164,16 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "search_positions": ("src/repro_torch/csrc/uruv_search.cu",
                          "src/repro/kernels/uruv_search/uruv_search.py:60"),
 }
-STORE_KERNELS = ("index_descend", "leaf_slots", "versioned_read",
-                 "range_scan")
-SERVE_KERNELS = STORE_KERNELS + ("flash_attention", "decode_attention")
+# the kernels each path launches: apply passes and lookups locate through
+# the fused entry (leaf_slots_read), range passes through range_scan; the
+# standalone versioned_read serves scan_page, which only the main path
+# calls.  No path launches leaf_slots on gathered rows or search_positions:
+# phase kernels calls them at their kernel-level entries.
+PASS_KERNELS = ("index_descend", "leaf_slots_read", "range_scan")
+STORE_KERNELS = PASS_KERNELS + ("versioned_read",)
+SERVE_KERNELS = PASS_KERNELS + ("flash_attention", "decode_attention")
+LATENCY_PROBE = "latency_probe"   # csrc source of hbm_latency_ms' chase
+SCAN_PAGES = 8                # main path: scan_page calls under the snapshot
 DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
 WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
 WORKER_MIXED = 4              # ... and 4 fig9b plans after their prefill
@@ -355,8 +380,117 @@ def parity_edge_cases(rng, edge_rng, dev) -> None:
               f"search_positions != plain (n_dir={n_dir}, pad={n_pad})")
         n_cases += 1
     n_cases += locate_edge_cases(edge_rng, dev)
+    n_cases += chain_edge_cases(np.random.default_rng(edge_rng.integers(
+        1 << 30)), dev)
     torch.cuda.synchronize()
     say("parity", cases=n_cases, result="exact")
+
+
+def chain_edge_cases(rng, dev) -> int:
+    """The chain-walking kernels' variants and edges, exact against their
+    twins: chains that cycle (self-loops newer than every snapshot),
+    max_chain 0, 1 and 64, the snapshot per query and one for all (a
+    scalar, an expanded view), the fused rank-and-read at L = 8, 33, 64
+    on pools 4 bytes off a 16-byte boundary too, and range worklists
+    all-invalid, ragged and random at L = 8, 33, 64.  Returns the number
+    of cases."""
+    from repro_torch.core.ref import KEY_MAX
+    from repro_torch.kernels.uruv_range.ref import range_scan_ref
+    from repro_torch.kernels.uruv_range.uruv_range import range_scan
+    from repro_torch.kernels.uruv_search.ref import leaf_slots_at_ref
+    from repro_torch.kernels.uruv_search.uruv_search import leaf_slots_at
+    from repro_torch.kernels.versioned_read.ref import versioned_read_ref
+    from repro_torch.kernels.versioned_read.versioned_read import (
+        versioned_read)
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    def off16(a):
+        a = np.asarray(a, np.int32)
+        buf = torch.empty(a.size + 1, dtype=torch.int32, device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.as_tensor(a))
+        return view
+
+    MV = 50_000
+    ts = rng.integers(0, 50, MV)
+    nxt = rng.integers(-1, MV, MV)
+    ts[:5], nxt[:5] = 1000, np.arange(5)
+    val = rng.integers(-2, 99, MV)
+    val[::11] = -(2**31) + 1
+    pools = (t(ts), t(nxt), t(val))
+
+    def snaps(P):
+        one = t(37)
+        return t(rng.integers(-3, 53, P)), one, one.expand(P)
+
+    n_cases = 0
+    for P, chain in ((4099, 0), (4096, 1), (5000, 64), (1, 64)):
+        vh = rng.integers(-1, MV, P)
+        vh[::7] = rng.integers(0, 5, len(vh[::7]))
+        vh = t(vh)
+        for sn in snaps(P):
+            got = versioned_read(vh, sn, *pools, max_chain=chain)
+            check(same(got, versioned_read_ref(vh, sn, *pools,
+                                               max_chain=chain)),
+                  f"versioned_read != plain (P={P}, chain={chain}, "
+                  f"snap={tuple(sn.shape)})")
+            n_cases += 1
+
+    ML = 512
+    for P, L, chain in ((4096, 64, 64), (4099, 8, 1), (777, 33, 64)):
+        pool = np.sort(rng.integers(0, 5000, (ML, L)), axis=1)
+        pool[rng.random((ML, L)) < 0.1] = KEY_MAX
+        pool = np.sort(pool, axis=1).astype(np.int32)
+        vhp = rng.integers(-1, MV, (ML, L))
+        vhp[:, ::9] = rng.integers(0, 5, vhp[:, ::9].shape)
+        ids = rng.integers(-ML - 2, ML + 2, P).astype(np.int32)
+        rows = pool[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1)]
+        q = rng.integers(0, 5100, P).astype(np.int32)
+        hit = rng.random(P) < 0.6
+        q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+        q[:2] = [KEY_MAX - 1, KEY_MAX][:min(2, P)]
+        for put in (t, off16):
+            lk, lv = put(pool), put(vhp)
+            for sn in snaps(P):
+                args = (lk, lv, t(ids), t(q), sn, *pools)
+                got = leaf_slots_at(*args, max_chain=chain)
+                want = leaf_slots_at_ref(*args, max_chain=chain)
+                check(all(same(a, b) for a, b in zip(got, want)),
+                      f"leaf_slots_at with a snapshot != plain (P={P}, "
+                      f"L={L}, put={put.__name__}, "
+                      f"snap={tuple(sn.shape)})")
+                n_cases += 1
+
+    ML = 2048
+    for Q, S, L, valid, chain in ((32768, 1, 64, "ragged", 64),
+                                  (4096, 1, 64, "none", 64),
+                                  (300, 3, 8, "random", 1),
+                                  (257, 2, 33, "random", 64)):
+        lkeys = np.sort(rng.integers(0, 10_000, (ML, L)), axis=1)
+        lvh = rng.integers(-1, MV, (ML, L))
+        lvh[:, ::9] = rng.integers(0, 5, lvh[:, ::9].shape)
+        lcnt = rng.integers(0, L + 1, ML)
+        if valid == "random":
+            pvalid = rng.random((Q, S)) < 0.8
+        else:
+            n_ok = 0 if valid == "none" else Q * S // 7 + 3
+            pvalid = (np.arange(Q * S) < n_ok).reshape(Q, S)
+        lids = np.where(pvalid, rng.integers(-ML - 2, ML + 2, (Q, S)), 0)
+        k1 = rng.integers(0, 10_000, Q)
+        k2 = k1 + rng.integers(-500, 3000, Q)          # inverted too
+        head = (t(lids), t(pvalid, torch.bool), t(k1), t(k2),
+                t(rng.integers(0, 60, Q)))
+        for put in (t, off16):
+            args = (*head, put(lkeys), put(lvh), t(lcnt), *pools)
+            got = range_scan(*args, max_chain=chain)
+            want = range_scan_ref(*args, max_chain=chain)
+            check(all(same(a, b) for a, b in zip(got, want)),
+                  f"range_scan != plain (Q={Q}, S={S}, L={L}, {valid}, "
+                  f"put={put.__name__})")
+            n_cases += 1
+    return n_cases
 
 
 def locate_edge_cases(rng, dev) -> int:
@@ -409,11 +543,14 @@ def locate_edge_cases(rng, dev) -> int:
               f"offset={odd})")
         n_cases += 1
 
-    # gathered rows and the in-place entry: one 16-byte chunk per lane
-    # (L = 8, 40, 64, 128), several (L = 200) and 4-byte loads (L = 33,
-    # and every pool again 4 bytes off a 16-byte boundary); leaf ids -1
-    # and past both ends; hits, misses, KEY_MAX - 1 and KEY_MAX; ragged P
-    ML = 4096
+    # gathered rows and the in-place entry (with a snapshot per query):
+    # one 16-byte chunk per lane (L = 8, 40, 64, 128), several (L = 200)
+    # and 4-byte loads (L = 33, and every pool again 4 bytes off a 16-byte
+    # boundary); leaf ids -1 and past both ends; hits, misses, KEY_MAX - 1
+    # and KEY_MAX; ragged P
+    ML, MV = 4096, 10**6
+    pools = (t(rng.integers(0, 50, MV)), t(rng.integers(-1, MV, MV)),
+             t(rng.integers(-2, 99, MV)))
     for P, L in ((5000, 64), (777, 8), (1000, 33), (4099, 40), (4095, 128),
                  (300, 200)):
         pool = np.sort(rng.integers(0, 5000, (ML, L)), axis=1)
@@ -428,15 +565,16 @@ def locate_edge_cases(rng, dev) -> int:
         q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
         q[:7] = KEY_MAX - 1
         q[7:9] = KEY_MAX
-        qt, it = t(q), t(ids)
+        qt, it, sn = t(q), t(ids), t(rng.integers(-3, 53, P))
         for put in (t, off16):
             r = put(rows)
             got = leaf_slots(r, qt)
             check(all(same(a, b) for a, b in zip(got, leaf_slots_ref(r, qt))),
                   f"leaf_slots != plain (P={P}, L={L}, put={put.__name__})")
             lk, lv = put(pool), put(vh)
-            got = leaf_slots_at(lk, lv, it, qt)
-            want = leaf_slots_at_ref(lk, lv, it, qt)
+            got = leaf_slots_at(lk, lv, it, qt, sn, *pools, max_chain=64)
+            want = leaf_slots_at_ref(lk, lv, it, qt, sn, *pools,
+                                     max_chain=64)
             check(all(same(a, b) for a, b in zip(got, want)),
                   f"leaf_slots_at != plain (P={P}, L={L}, "
                   f"put={put.__name__})")
@@ -549,6 +687,10 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
         pages = db.range_all(lo, lo + RANGE_SIZE - 1, held)
         probe_keys = rng.integers(0, UNIVERSE, WIDTH).astype(np.int32)
         got = db.lookup(probe_keys, held)
+        # the paper's single-interval RANGEQUERY over 64 chained leaves
+        # (the standalone versioned_read's path), on the first intervals
+        scans = [db.scan_page(int(a), int(a) + RANGE_SIZE - 1, held)
+                 for a in lo[:SCAN_PAGES]]
         db.release_snapshot(held)
         if verify:
             for a, pg in zip(lo.tolist(), pages):
@@ -557,6 +699,12 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
                                      exp), f"{tag}: held-snapshot range")
             check(np.array_equal(got, held_val[probe_keys]),
                   f"{tag}: held-snapshot lookup")
+            for a, page in zip(lo.tolist(), scans):
+                exp = oracle.range(a, a + RANGE_SIZE - 1, held_val)
+                items = np.asarray(page.items(), np.int64).reshape(-1, 2)
+                check(np.array_equal(items, exp[:len(items)])
+                      and (bool(page.truncated[0]) or len(items) == len(exp)),
+                      f"{tag}: held-snapshot scan_page at {a}")
     return dict(prefill_s=prefill_s, apply_s=apply_s, n_ops=n_ops)
 
 
@@ -762,6 +910,68 @@ def _chain_touch(vhead, snap, ver_ts, ver_next, max_chain):
             _unique(final))
 
 
+def _walk_loads(vhead, snap, ver_ts, ver_next, max_chain) -> int:
+    """The most dependent round trips one chain walk takes at these
+    inputs, with each hop's ts, next and value loaded together
+    (``uruv::resolve_chains``): a load per hop until a version at or
+    before the snapshot or the chain's end, and one more read for a
+    chain still newer after ``max_chain`` steps."""
+    n = ver_ts.shape[0]
+    cur = vhead.long()
+    walking = cur >= 0
+    loads = torch.zeros_like(cur)
+    for _ in range(max_chain):
+        if not bool(walking.any()):
+            break
+        loads += walking
+        c = cur.clamp(0, n - 1)
+        adv = walking & (ver_ts[c] > snap)
+        cur = torch.where(adv, ver_next[c].long(), cur)
+        walking = adv & (cur >= 0)
+    loads += walking
+    return int(loads.max()) if loads.numel() else 0
+
+
+def hbm_latency_ms(dev, steps: int = 20_000) -> float:
+    """The card's dependent-load latency from HBM, ms per load: a pointer
+    chase (``csrc/latency_probe.cu``, one thread) through one random
+    cycle over 256 MiB of int32, five times the 50 MB L2, timed with CUDA
+    events over ``steps`` loads.  A warm-up chase comes first; the timed
+    one goes on from where it stopped, so it touches no line the warm-up
+    brought into L2."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    n = 64 << 20
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = torch.randperm(n, device=dev, generator=gen)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
+    nxt[perm] = perm.roll(-1).int()
+    start = int(perm[0])
+    del perm
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _build.load(LATENCY_PROBE, {"uruv_pointer_chase": (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p)})
+
+    def chase(first):
+        _build.check(lib.uruv_pointer_chase(nxt.data_ptr(), first, steps,
+                                            out.data_ptr(),
+                                            _build.stream_ptr(out)),
+                     "pointer_chase")
+    chase(start)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    first = int(out)          # synchronises: the warm-up is done
+    t0.record()
+    chase(first)
+    t1.record()
+    torch.cuda.synchronize()
+    check(0 <= int(out) < n, "latency probe: the chase left the buffer")
+    return t0.elapsed_time(t1) / steps
+
+
 def _bound(nbytes: float, nops: float) -> tuple:
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
     HBM's rate and the int32 operations over the card's 32-bit rate."""
@@ -771,13 +981,18 @@ def _bound(nbytes: float, nops: float) -> tuple:
                                    else "operations")
 
 
-def gathered_locate(index, leaf_keys, leaf_vhead, queries):
-    """``backend.locate`` composed over gathered rows, as the JAX package
-    composes it: the descent, a [P, L] gather of leaf rows, the rank on
-    the gathered rows, then a clamp, a second gather and a ``where`` for
-    the version head."""
+def composed_lookup(index, leaf_keys, leaf_vhead, queries, snap_ts,
+                    versions, *, max_chain):
+    """A lookup composed as the JAX package composes it, and as the store
+    ran it before the in-leaf rank read its leaf row in place and walked
+    the hit's chain: the descent, a [P, L] gather of leaf rows, the rank
+    on the gathered rows, a clamp, a second gather and a ``where`` for the
+    version head, the snapshot copied out to [P], and a standalone
+    ``versioned_read``."""
     from repro_torch.kernels.uruv_search.uruv_search import (
         index_descend, leaf_slots)
+    from repro_torch.kernels.versioned_read.versioned_read import (
+        versioned_read)
 
     L = leaf_keys.shape[1]
     bnode, bslot, leaf_id = index_descend(index.node_keys, index.node_child,
@@ -785,44 +1000,55 @@ def gathered_locate(index, leaf_keys, leaf_vhead, queries):
     slot, exists = leaf_slots(leaf_keys[leaf_id], queries)
     vhead = torch.where(exists, leaf_vhead[leaf_id, slot.clamp_max(L - 1)],
                         -1)
-    return bnode, bslot, leaf_id, slot, exists, vhead
+    snap = snap_ts.expand(vhead.shape).contiguous()
+    return (bnode, bslot, leaf_id, slot, exists, vhead,
+            versioned_read(vhead, snap, *versions, max_chain=max_chain))
 
 
 def locate_report(main) -> dict:
-    """One ``backend.locate`` at the main path's widest inputs, in the two
-    forms: the two-launch one the store runs and the composition over
-    gathered rows (:func:`gathered_locate`).  Both must agree exactly;
-    each gets its wrapper time (``ms``), its device time (every kernel of
-    the call, the PyTorch gathers included) and its kernels per call from
-    a trace."""
+    """One lookup, ``backend.locate`` at the main path's widest inputs, in
+    two forms: the fused two-launch one the store runs and the
+    composition over gathered rows (:func:`composed_lookup`).  They must
+    agree exactly; each form gets its wrapper time (``ms``), its device
+    time (every kernel of the call, PyTorch's included) and its kernels
+    per call from a trace.  The fused form must be exactly 2 kernels per
+    call."""
     from repro_torch.core import backend
 
-    _, a, _ = main["calls"]["locate"]
-    want = gathered_locate(*a)
-    got = backend.locate(*a)
-    check(all(same(x, y) for x, y in zip(got, want)),
-          "locate: the two-launch form != the gathered-rows form")
+    _, a, kw = main["calls"]["locate"]
+    forms = {"lookup": (backend.locate, a, kw),
+             "lookup_composed": (composed_lookup, a, kw)}
+    got = backend.locate(*a, **kw)
+    want = composed_lookup(*a, **kw)
+    check(len(got) == len(want)
+          and all(same(u, v) for u, v in zip(got, want)),
+          "locate: the lookup form != the lookup_composed form")
     out = {}
-    for form, fn in (("two_launch", backend.locate),
-                     ("gathered_rows", gathered_locate)):
-        ms = time_ms(lambda: fn(*a))
-        dev_ms, dev_by = device_ms(lambda: fn(*a))
+    for form, (fn, args, kwargs) in forms.items():
+        ms = time_ms(lambda: fn(*args, **kwargs))
+        dev_ms, dev_by = device_ms(lambda: fn(*args, **kwargs))
         # launches per call of each kernel the trace holds (a trace can
         # lose its last few launches, hence the rounding)
         calls = 22
         n_kern = sum(round(len(d) / calls) for d in
-                     kernel_trace(lambda: fn(*a), calls).values())
+                     kernel_trace(lambda: fn(*args, **kwargs),
+                                  calls).values())
         out[form] = dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
                          kernels_per_call=n_kern)
         say("locate", form=form, P=a[3].numel(), ms=f"{ms:.5f}",
             device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
             kernels_per_call=n_kern)
-    check(out["two_launch"]["kernels_per_call"] == 2,
-          "locate: not two kernels per call on the card")
+    check(out["lookup"]["kernels_per_call"] == 2,
+          "locate: the lookup form is not two kernels per call")
     return out
 
 
 def kernel_report(main) -> list:
+    """The store kernels at the widest inputs the main path gave them:
+    exact against their twins, ``ms``, ``device_ms``, the twin's time,
+    ``bound_ms``; the chain-walking rows add ``latency_floor_ms``, their
+    longest chain of dependent round trips at these inputs times the
+    card's HBM load latency (:func:`hbm_latency_ms`)."""
     from repro_torch.core._ops import jax_index
     from repro_torch.core.ref import KEY_MAX
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
@@ -834,18 +1060,29 @@ def kernel_report(main) -> list:
     from repro_torch.kernels.versioned_read.versioned_read import (
         versioned_read)
 
-    # the leaf_slots kernel runs on the main path through its in-place
-    # entry, leaf_slots_at, whose launches count under leaf_slots
-    kern = {"index_descend": (US.index_descend, index_descend_ref),
-            "leaf_slots": (US.leaf_slots_at, leaf_slots_at_ref),
-            "versioned_read": (versioned_read, versioned_read_ref),
-            "range_scan": (range_scan, range_scan_ref)}
-    calls = {n: n for n in kern}
-    calls["leaf_slots"] = "leaf_slots_at"
-    inputs = {n: main["calls"][c][1:] for n, c in calls.items()}
+    lat_ms = hbm_latency_ms(torch.device("cuda"))
+    say("latency", hbm_dependent_load_us=f"{lat_ms * 1e3:.4f}",
+        buffer_mib=256, probe="csrc/latency_probe.cu")
+    calls = main["calls"]
+    launches = main["counts"]
+    # the main path launches the leaf_slots kernel only in place, through
+    # the fused entry (leaf_slots_read); row leaf_slots is its rows form,
+    # the TPU kernel's signature, on the leaf rows that call read
+    at_args, at_kw = calls["leaf_slots_at"][1:]
+    pool, at_ids = at_args[0], at_args[2]
+    leaf_rows = pool[jax_index(at_ids, pool.shape[0]).long()]
+    kern = {"index_descend": (US.index_descend, index_descend_ref,
+                              calls["index_descend"][1:]),
+            "leaf_slots": (US.leaf_slots, leaf_slots_ref,
+                           ((leaf_rows, at_args[3]), {})),
+            "leaf_slots_read": (US.leaf_slots_at, leaf_slots_at_ref,
+                                (at_args, at_kw)),
+            "versioned_read": (versioned_read, versioned_read_ref,
+                               calls["versioned_read"][1:]),
+            "range_scan": (range_scan, range_scan_ref,
+                           calls["range_scan"][1:])}
     rows = []
-    for name, (fn, ref) in kern.items():
-        a, kw = inputs[name]
+    for name, (fn, ref, (a, kw)) in kern.items():
         outs = fn(*a, **kw)
         refs = ref(*a, **kw)
         outs = outs if isinstance(outs, tuple) else (outs,)
@@ -857,6 +1094,7 @@ def kernel_report(main) -> list:
         dev_ms, dev_by = device_ms(lambda: fn(*a, **kw))
         plain_ms = time_ms(lambda: ref(*a, **kw), iters=5)
         library_ms = library_dev_ms = None
+        round_trips = None
         extra = {}
         if name == "index_descend":
             keys, child, q = a
@@ -866,26 +1104,48 @@ def kernel_report(main) -> list:
             nops = 2 * P * len(keys) * F
             shape = f"P={P},D={len(keys)},F={F}"
         elif name == "leaf_slots":
+            # the gathered rows and queries in; slot and exists out
+            rws, qs = a
+            P, L = rws.shape
+            nbytes = 4 * P * L + 4 * P + 4 * P + P
+            nops = P * L
+            library_ms = time_ms(lambda: torch.searchsorted(rws, qs[:, None]))
+            library_dev_ms, _ = device_ms(
+                lambda: torch.searchsorted(rws, qs[:, None]))
+            extra["path"] = ("kernel-level entry, on the rows the widest "
+                             "leaf_slots_read call read, gathered")
+            shape = f"P={P},L={L}"
+        elif name == "leaf_slots_read":
             # in place: the distinct leaf rows the queries read, one
-            # version head per hit; ids, queries in, slot, exists, vhead out
-            lk, lvh, ids, q = a
+            # version head per hit, the chains; ids, queries and
+            # snapshots in; slot, exists, vhead and the value out
+            lk, lvh, ids, q, sn, vts, vnx, vval = a
             P, L = q.numel(), lk.shape[1]
             n_rows = _unique(jax_index(ids, lk.shape[0]))
             n_hits = int(outs[1].sum())
-            nbytes = 8 * P + n_rows * L * 4 + 4 * n_hits + 9 * P
-            nops = P * L
-            shape = f"P={P},ML={lk.shape[0]},L={L}"
-            extra["gathered_rows"] = gathered_rows_report(
-                lk[jax_index(ids, lk.shape[0]).long()], q, US.leaf_slots,
-                leaf_slots_ref)
+            n_ts, n_next, n_val = _chain_touch(outs[2], sn, vts, vnx,
+                                               kw["max_chain"])
+            nbytes = (8 * P + 4 * sn.numel() + n_rows * L * 4 + 4 * n_hits
+                      + 4 * (n_ts + n_next + n_val) + 13 * P)
+            nops = P * L + 2 * (n_ts + P)
+            # ids, queries and snapshots; the leaf row; the chain
+            round_trips = 2 + _walk_loads(outs[2], sn, vts, vnx,
+                                          kw["max_chain"])
+            shape = (f"P={P},ML={lk.shape[0]},L={L},MV={vts.numel()},"
+                     f"snap={tuple(sn.shape)}")
         elif name == "versioned_read":
             vh, sn, vts, vnx, vval = a
             n_ts, n_next, n_val = _chain_touch(vh, sn, vts, vnx,
                                                kw["max_chain"])
             P = vh.numel()
-            nbytes = 8 * P + 4 * P + 4 * (n_ts + n_next + n_val)
+            nbytes = 4 * P + 4 * sn.numel() + 4 * P + 4 * (n_ts + n_next
+                                                           + n_val)
             nops = 2 * (n_ts + P)
-            shape = f"P={P},MV={vts.numel()}"
+            round_trips = 1 + _walk_loads(vh, sn, vts, vnx, kw["max_chain"])
+            shape = f"P={P},MV={vts.numel()},snap={tuple(sn.shape)}"
+            extra["lookup_inputs"] = lookup_inputs_report(
+                kern["leaf_slots_read"][2], versioned_read,
+                versioned_read_ref, lat_ms)
         else:
             (lids, pv, k1, k2, sn, lk, lvh, lc, vts, vnx, vval) = a
             Q, S = lids.shape
@@ -904,18 +1164,29 @@ def kernel_report(main) -> list:
                       + 4 * int(cand.sum()) + 4 * (n_ts + n_next + n_val)
                       + 2 * 4 * Q * S * L)
             nops = Q * S * L * 4
+            # lids, pvalid, k1, k2, snapshot; the leaf row; the chains
+            round_trips = (2 + _walk_loads(cand_vh, snap_c, vts, vnx,
+                                           kw["max_chain"])
+                           if bool(pv.any()) else 1)
+            extra["valid_rows"] = int(pv.sum())
             shape = f"Q={Q},S={S},L={L}"
         bound_ms, bound_by = _bound(nbytes, nops)
+        if round_trips is not None:
+            extra.update(round_trips=round_trips,
+                         latency_floor_ms=round_trips * lat_ms)
         src, replaces = KERNELS[name]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=main["counts"].get(name, 0), max_abs_err=err,
+            launches=launches.get(name, 0), max_abs_err=err,
             ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
             library_device_ms=library_dev_ms, **extra))
         say("kernel", name=name, shape=shape, ms=f"{ms:.5f}",
             device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
+            latency_floor_ms=("none" if round_trips is None else
+                              f"{round_trips * lat_ms:.6f}"),
+            round_trips=round_trips, launches=launches.get(name, 0),
             library_ms=library_ms if library_ms is None
             else f"{library_ms:.5f}",
             library_device_ms=library_dev_ms if library_dev_ms is None
@@ -923,31 +1194,40 @@ def kernel_report(main) -> list:
     return rows
 
 
-def gathered_rows_report(rows, q, fn, ref) -> dict:
-    """The leaf_slots kernel's rows form (the TPU kernel's signature) on
-    the leaf rows the main path's widest in-place call read, gathered:
-    exact against its twin, its times and bound, and ``torch.searchsorted``
-    on the same rows (``library_ms``, ``library_device_ms``)."""
-    outs, refs = fn(rows, q), ref(rows, q)
-    check(all(same(x, y) for x, y in zip(outs, refs)),
-          "leaf_slots (gathered rows) != plain at the main path's leaves")
-    err = max_abs_err(outs, refs)
-    ms = time_ms(lambda: fn(rows, q))
-    dev_ms, dev_by = device_ms(lambda: fn(rows, q))
-    plain_ms = time_ms(lambda: ref(rows, q), iters=5)
-    library_ms = time_ms(lambda: torch.searchsorted(rows, q[:, None]))
-    library_dev_ms, _ = device_ms(lambda: torch.searchsorted(rows, q[:, None]))
-    P, L = rows.shape
-    bound_ms, bound_by = _bound(4 * P * L + 4 * P + 4 * P + P, P * L)
-    say("kernel", name="leaf_slots", form="gathered_rows", shape=f"P={P},L={L}",
-        ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
-        plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
-        library_ms=f"{library_ms:.5f}",
-        library_device_ms=f"{library_dev_ms:.5f}", max_abs_err=err)
+def lookup_inputs_report(fused_call, fn, ref, lat_ms) -> dict:
+    """The standalone versioned_read at the inputs the lookup gave it
+    before the chain walk was fused (as :func:`composed_lookup` builds
+    them from the fused call's inputs: the version heads, the snapshot
+    copied out to [P]), so its time compares with an earlier tree's
+    ``versioned_read`` row, which the main path's lookups launched:
+    exact against its twin, ``ms``, ``device_ms``, bound and latency
+    floor."""
+    from repro_torch.kernels.uruv_search.uruv_search import leaf_slots_at
+
+    a, kw = fused_call
+    vhead = leaf_slots_at(*a, **kw)[2]
+    snap = a[4].expand(vhead.shape).contiguous()
+    args = (vhead, snap, *a[5:])
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    check(same(got, want), "versioned_read != plain at the lookup's inputs")
+    ms = time_ms(lambda: fn(*args, **kw))
+    dev_ms, dev_by = device_ms(lambda: fn(*args, **kw))
+    P = vhead.numel()
+    n_ts, n_next, n_val = _chain_touch(vhead, snap, *a[5:7],
+                                       kw["max_chain"])
+    bound_ms, bound_by = _bound(12 * P + 4 * (n_ts + n_next + n_val),
+                                2 * (n_ts + P))
+    round_trips = 1 + _walk_loads(vhead, snap, *a[5:7], kw["max_chain"])
+    say("kernel", name="versioned_read", form="lookup_inputs",
+        shape=f"P={P},snap={tuple(snap.shape)}", ms=f"{ms:.5f}",
+        device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
+        bound_ms=f"{bound_ms:.6f}",
+        latency_floor_ms=f"{round_trips * lat_ms:.6f}",
+        round_trips=round_trips, max_abs_err=max_abs_err((got,), (want,)))
     return dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, library_device_ms=library_dev_ms,
-                max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by,
+                round_trips=round_trips,
+                latency_floor_ms=round_trips * lat_ms)
 
 
 def search_positions_report(main, api, rng) -> list:
@@ -955,9 +1235,10 @@ def search_positions_report(main, api, rng) -> list:
     ``n_leaves``) and on that directory padded with KEY_MAX to
     ``max_leaves``, as the TPU wrapper pads, for the keys of one fig9b
     plan.  No path of either package calls it (the multi-level index
-    replaced the flat directory), so its path here is its kernel-level
-    entry: the counts are set to 0 just before the two calls and read
-    just after.  Then each result is held against the twin,
+    replaced the flat directory), so its ``launches`` is the main path's
+    0, and it is called at its kernel-level entry: the counts are set to 0
+    just before the two calls and read just after (``side_launches``).
+    Then each result is held against the twin,
     ``torch.searchsorted`` (its library time) and ``max(rank_right - 1,
     0)`` of the store's multi-level index: exact."""
     from repro_torch.core import index as I
@@ -980,8 +1261,9 @@ def search_positions_report(main, api, rng) -> list:
     _build.launch_counts.clear()
     got = {k: search_positions(d, q) for k, d in dirs.items()}
     torch.cuda.synchronize()
-    launches = _build.launch_counts["search_positions"]
-    check(launches == len(dirs), f"search_positions: {launches} launches")
+    side = _build.launch_counts["search_positions"]
+    check(side == len(dirs), f"search_positions: {side} launches")
+    launches = main["counts"].get("search_positions", 0)
     rank = (I.rank_right(store.index, q) - 1).clamp_min(0)
     rows = []
     for k, d in dirs.items():
@@ -1007,12 +1289,12 @@ def search_positions_report(main, api, rng) -> list:
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
             library_ms=f"{library_ms:.5f}",
             library_device_ms=f"{library_dev_ms:.5f}", max_abs_err=err,
-            launches=launches)
+            launches=launches, side_launches=side)
         rows.append(dict(
             name="search_positions", route="cuda",
             source=KERNELS["search_positions"][0],
             replaces=KERNELS["search_positions"][1], launches=launches,
-            max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+            side_launches=side, max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, library_device_ms=library_dev_ms))
     # the JSON line holds one row per kernel: the TPU kernel's own input,
@@ -1485,7 +1767,7 @@ def durability_phase(args, api, rng, card: str,
         M.CheckpointManager.restore_store, R.replay = orig_restore, orig_replay
     recover_ms = (time.perf_counter() - t) * 1e3
     counts = dict(_build.launch_counts)
-    for name in STORE_KERNELS:
+    for name in PASS_KERNELS:
         check(counts.get(name, 0) > 0,
               f"kernel {name} never ran in the recovery")
 
@@ -1690,7 +1972,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     card = probe()
-    secs = _build.build()
+    # the port's kernels and, with them, the card's latency probe
+    secs = _build.build((*_build.SOURCES, LATENCY_PROBE))
     say("build", seconds=f"{max(secs.values()):.2f}",
         libraries=len(secs), dir=str(_build.BUILD_DIR))
     rng = np.random.default_rng(args.seed)

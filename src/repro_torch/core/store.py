@@ -224,9 +224,13 @@ def _i32(x, dev) -> torch.Tensor:
 # Locate + resolve (through repro_torch.core.backend)
 # ---------------------------------------------------------------------------
 
-def _locate(store: UruvStore, keys: torch.Tensor):
-    """Root->leaf traversal: (bnode, bslot, leaf_id, slot, exists, vhead)."""
-    return _B.locate(store.index, store.leaf_keys, store.leaf_vhead, keys)
+def _locate(store: UruvStore, keys: torch.Tensor, snap_ts):
+    """Root->leaf traversal: (bnode, bslot, leaf_id, slot, exists, vhead,
+    value), ``value`` the versioned read at ``snap_ts`` (scalar or [P]),
+    NOT_FOUND where the key is absent."""
+    return _B.locate(store.index, store.leaf_keys, store.leaf_vhead, keys,
+                     snap_ts, (store.ver_ts, store.ver_next, store.ver_value),
+                     max_chain=store.cfg.max_chain)
 
 
 def _resolve(store: UruvStore, vhead: torch.Tensor, snap_ts) -> torch.Tensor:
@@ -240,8 +244,7 @@ def bulk_lookup(store: UruvStore, keys, snap_ts) -> torch.Tensor:
     Padded (KEY_MAX) keys return NOT_FOUND; the clock does not move."""
     keys = _i32(keys, store.device)
     snap = _i32(snap_ts, store.device).expand(keys.shape)
-    _, _, _, _, exists, vhead = _locate(store, keys)
-    vals = _resolve(store, torch.where(exists, vhead, -1), snap)
+    vals = _locate(store, keys, snap)[6]
     return torch.where(keys >= KEY_MAX, NOT_FOUND, vals)
 
 
@@ -300,8 +303,11 @@ def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
                                                device=dev),
                                     skeys[1:] != skeys[:-1]])
 
-    # ---- locate all ops: ONE descent for updates and searches
-    bnode, bslot, leaf_id, slot, exists, old_vhead = _locate(store, skeys)
+    # ---- locate all ops: ONE descent for updates and searches, each key
+    # also read at its op's snapshot (used by searches with no in-batch
+    # predecessor; the walk rides in the locate's launch)
+    bnode, bslot, leaf_id, slot, exists, old_vhead, resolved = _locate(
+        store, skeys, sop_ts)
     exists = exists & svalid
     F_I = cfg.index_fanout
     ENT_PAD = cfg.index_config().caps[0] * F_I     # grouping sentinel
@@ -325,8 +331,6 @@ def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
     prev_vals_sorted = torch.where(
         upd_s, torch.where(pred >= 0, pred_val, head_val), NOT_FOUND)
     # searches with no in-batch predecessor resolve on the pre-batch chain
-    rhead = torch.where(search_s & (pred < 0) & exists, old_vhead, -1)
-    resolved = _resolve(store, rhead, sop_ts)
     search_vals_sorted = torch.where(
         search_s, torch.where(pred >= 0, pred_val, resolved), NOT_FOUND)
 

@@ -48,6 +48,17 @@
 // holding column min(slot, L - 1).  It is bound by latency too: the
 // leaf id, then one round trip for both rows.
 //
+// The in-place entry also takes a snapshot per query (or one for all)
+// and the version pools: the lane that writes the result walks the hit's
+// version chain from the head it already holds (uruv::resolve_chain: ts,
+// next and value of a hop loaded together) and writes a fourth output,
+// the value at that snapshot (NOT_FOUND where the key is absent).  It
+// replaces the versioned_read launch that followed every lookup's locate
+// (src/repro/kernels/versioned_read/versioned_read.py), and its inputs:
+// no vhead masking, no [P] copy of the snapshot.  A lookup is then the
+// descent and this one launch; a chain of h hops adds h + 1 round trips
+// after the leaf row's.
+//
 // In both kernels, lanes past P follow the last query and write nothing,
 // so every lane of a warp takes part in every shuffle.
 #include <cuda_runtime.h>
@@ -60,6 +71,18 @@ namespace {
 constexpr int kMaxDepth = 32;
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The version pools and snapshots of the in-place entry's chain walk;
+// snap[i * snap_stride] is query i's snapshot (stride 0: one for all).
+struct Versions {
+  const int* ts;
+  const int* next;
+  const int* value;
+  const int* snap;
+  int snap_stride;
+  int n;
+  int max_chain;
+};
 
 struct Levels {
   const int* keys[kMaxDepth];   // level l: [cap[l], F], l = 0 is the bottom
@@ -165,21 +188,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// kAt: in place on the leaf pool, with the hit's chain walked; else the
+// gathered rows, query i ranking row i
 template <int G, int VEC, bool kAt>
 __global__ void __launch_bounds__(kThreads)
     leaf_slots_kernel(const int* __restrict__ keys,
                       const int* __restrict__ vhead,
                       const int* __restrict__ ids, int n_rows, int W,
                       const int* __restrict__ queries, int n,
-                      int* __restrict__ slot_out,
+                      Versions ver, int* __restrict__ slot_out,
                       unsigned char* __restrict__ exists_out,
-                      int* __restrict__ vhead_out) {
+                      int* __restrict__ vhead_out,
+                      int* __restrict__ val_out) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   const int g = threadIdx.x % G;
   const bool live = t / G < n;
   const int i = live ? static_cast<int>(t / G) : n - 1;
   const int q = __ldg(queries + i);
+  // read with the query, so the snapshot adds no round trip
+  const int snap = kAt ? __ldg(ver.snap + i * ver.snap_stride) : 0;
   const long long row =
       static_cast<long long>(kAt ? uruv::jax_index(__ldg(ids + i), n_rows)
                                  : i) * W;
@@ -212,7 +240,12 @@ __global__ void __launch_bounds__(kThreads)
   if (live && g == 0) {
     slot_out[i] = cnt;
     exists_out[i] = exists;
-    if (kAt) vhead_out[i] = exists ? vh : -1;
+    if (kAt) {
+      vh = exists ? vh : -1;
+      vhead_out[i] = vh;
+      val_out[i] = uruv::resolve_chain(vh, snap, ver.ts, ver.next, ver.value,
+                                       ver.n, ver.max_chain);
+    }
   }
 }
 
@@ -273,27 +306,54 @@ int dispatch_descend(int G, const Levels& lv, int depth, int F,
 
 template <int G, int VEC, bool kAt>
 int launch_slots(const int* keys, const int* vhead, const int* ids,
-                 int n_rows, int W, const int* queries, int n, int* slot,
-                 unsigned char* exists, int* vhead_out, cudaStream_t s) {
+                 int n_rows, int W, const int* queries, int n,
+                 const Versions& ver, int* slot, unsigned char* exists,
+                 int* vhead_out, int* val_out, cudaStream_t s) {
   leaf_slots_kernel<G, VEC, kAt>
       <<<uruv::blocks_for(static_cast<long long>(n) * G, kThreads), kThreads,
-         0, s>>>(keys, vhead, ids, n_rows, W, queries, n, slot, exists,
-                 vhead_out);
+         0, s>>>(keys, vhead, ids, n_rows, W, queries, n, ver, slot, exists,
+                 vhead_out, val_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int VEC, bool kAt>
 int dispatch_slots(int G, const int* keys, const int* vhead, const int* ids,
-                   int n_rows, int W, const int* queries, int n, int* slot,
-                   unsigned char* exists, int* vhead_out, cudaStream_t s) {
+                   int n_rows, int W, const int* queries, int n,
+                   const Versions& ver, int* slot, unsigned char* exists,
+                   int* vhead_out, int* val_out, cudaStream_t s) {
+#define URUV_SLOTS(g)                                                      \
+  launch_slots<g, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, ver, \
+                            slot, exists, vhead_out, val_out, s)
   switch (G) {
-    case 1: return launch_slots<1, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
-    case 2: return launch_slots<2, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
-    case 4: return launch_slots<4, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
-    case 8: return launch_slots<8, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
-    case 16: return launch_slots<16, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
-    default: return launch_slots<32, VEC, kAt>(keys, vhead, ids, n_rows, W, queries, n, slot, exists, vhead_out, s);
+    case 1: return URUV_SLOTS(1);
+    case 2: return URUV_SLOTS(2);
+    case 4: return URUV_SLOTS(4);
+    case 8: return URUV_SLOTS(8);
+    case 16: return URUV_SLOTS(16);
+    default: return URUV_SLOTS(32);
   }
+#undef URUV_SLOTS
+}
+
+template <bool kAt>
+int slots_entry(const int* keys, const int* vhead, const int* ids,
+                int n_rows, int width, int vec, const int* queries, int n,
+                const Versions& ver, int* slot_out,
+                unsigned char* exists_out, int* vhead_out, int* val_out,
+                void* stream) {
+  if (width < 1 || n < 1 || (vec != 1 && vec != 4) || width % vec != 0 ||
+      (vec == 4 && (misaligned(keys) || (kAt && misaligned(vhead)))) ||
+      (kAt && (vhead == nullptr || vhead_out == nullptr || n_rows < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = group_for(width / vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return dispatch_slots<4, kAt>(G, keys, vhead, ids, n_rows, width, queries,
+                                  n, ver, slot_out, exists_out, vhead_out,
+                                  val_out, s);
+  return dispatch_slots<1, kAt>(G, keys, vhead, ids, n_rows, width, queries, n,
+                                ver, slot_out, exists_out, vhead_out, val_out,
+                                s);
 }
 
 }  // namespace
@@ -333,34 +393,34 @@ extern "C" int uruv_index_descend(const long long* levels, int depth,
   return dispatch_descend<1>(G, lv, depth, fanout, queries, n, out, s);
 }
 
-// The in-leaf rank.  Gathered rows: keys is [n, width], ids, vhead and
-// vhead_out are null, and query i ranks row i.  In place: keys and vhead
-// are the leaf pool [n_rows, width], query i ranks row
-// jax_index(ids[i], n_rows), and vhead_out gets its version head at the
-// hit (-1 where the key is absent).
-extern "C" int uruv_leaf_slots(const int* keys, const int* vhead,
-                               const int* ids, int n_rows, int width,
-                               int vec, const int* queries, int n,
-                               int* slot_out, unsigned char* exists_out,
-                               int* vhead_out, void* stream) {
-  const bool at = ids != nullptr;
-  if (width < 1 || n < 1 || (vec != 1 && vec != 4) || width % vec != 0 ||
-      (vec == 4 && (misaligned(keys) || (at && misaligned(vhead)))) ||
-      (at && (vhead == nullptr || vhead_out == nullptr || n_rows < 1)))
+// The in-leaf rank on gathered rows: keys is [n, width], and query i
+// ranks row i.
+extern "C" int uruv_leaf_slots(const int* keys, int width, int vec,
+                               const int* queries, int n, int* slot_out,
+                               unsigned char* exists_out, void* stream) {
+  return slots_entry<false>(keys, nullptr, nullptr, 0, width, vec, queries,
+                            n, Versions{}, slot_out, exists_out, nullptr,
+                            nullptr, stream);
+}
+
+// The in-leaf rank in place, with the hit's chain walked in the same
+// launch: keys and vhead are the leaf pool [n_rows, width], query i ranks
+// row jax_index(ids[i], n_rows), vhead_out gets its version head at the
+// hit (-1 where the key is absent), and val_out[i] the value at
+// snap[i * snap_stride] (snap_stride 0 or 1) along the chain from that
+// head through the pools [n_ver], at most max_chain steps.
+extern "C" int uruv_leaf_slots_read(
+    const int* keys, const int* vhead, const int* ids, int n_rows,
+    int width, int vec, const int* queries, int n, const int* snap,
+    int snap_stride, const int* ver_ts, const int* ver_next,
+    const int* ver_value, int n_ver, int max_chain, int* slot_out,
+    unsigned char* exists_out, int* vhead_out, int* val_out, void* stream) {
+  if (ids == nullptr || snap == nullptr || val_out == nullptr ||
+      n_ver < 1 || max_chain < 0 || (snap_stride != 0 && snap_stride != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = group_for(width / vec);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
-    return at ? dispatch_slots<4, true>(G, keys, vhead, ids, n_rows, width,
-                                        queries, n, slot_out, exists_out,
-                                        vhead_out, s)
-              : dispatch_slots<4, false>(G, keys, vhead, ids, n_rows, width,
-                                         queries, n, slot_out, exists_out,
-                                         vhead_out, s);
-  return at ? dispatch_slots<1, true>(G, keys, vhead, ids, n_rows, width,
-                                      queries, n, slot_out, exists_out,
-                                      vhead_out, s)
-            : dispatch_slots<1, false>(G, keys, vhead, ids, n_rows, width,
-                                       queries, n, slot_out, exists_out,
-                                       vhead_out, s);
+  const Versions ver = {ver_ts, ver_next, ver_value, snap, snap_stride,
+                        n_ver, max_chain};
+  return slots_entry<true>(keys, vhead, ids, n_rows, width, vec, queries, n,
+                           ver, slot_out, exists_out, vhead_out, val_out,
+                           stream);
 }

@@ -143,3 +143,28 @@ def require(kernel: str, device, dtype, **tensors) -> None:
                              f"expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def vec_for(width: int, *ptrs: int) -> int:
+    """4 (16-byte loads) when rows of ``width`` int32 and every base
+    pointer allow it, else 1: the two variants of a kernel's template."""
+    aligned = not any(p & 15 for p in ptrs)
+    return 4 if width % 4 == 0 and aligned else 1
+
+
+def snap_stride(kernel: str, snap, n: int, device) -> int:
+    """The kernel-side stride of a snapshot argument for ``n`` queries: 0
+    for one snapshot for all (a scalar, a [1] tensor, or a [n] view of one
+    made by ``expand``), 1 for one per query ([n], contiguous).  Raises on
+    any other shape or layout, and unless it is int32 on ``device``."""
+    import torch
+
+    if snap.dtype != torch.int32 or snap.device != device:
+        raise TypeError(f"{kernel}: snap_ts must be int32 on {device}, got "
+                        f"{snap.dtype} on {snap.device}")
+    if snap.dim() <= 1 and snap.numel() == 1:
+        return 0
+    if snap.shape == (n,) and snap.stride(0) in (0, 1):
+        return snap.stride(0)
+    raise ValueError(f"{kernel}: snap_ts must be a scalar or [{n}], got "
+                     f"{tuple(snap.shape)} with strides {snap.stride()}")

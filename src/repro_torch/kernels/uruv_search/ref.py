@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core._ops import jax_index
 from repro_torch.core.ref import KEY_MAX
+from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 
 
 def index_descend_ref(level_keys, level_child, queries: torch.Tensor):
@@ -42,15 +43,23 @@ def leaf_slots_ref(rows: torch.Tensor, queries: torch.Tensor):
 
 
 def leaf_slots_at_ref(leaf_keys: torch.Tensor, leaf_vhead: torch.Tensor,
-                      leaf_id: torch.Tensor, queries: torch.Tensor):
+                      leaf_id: torch.Tensor, queries: torch.Tensor,
+                      snap_ts=None, ver_ts=None, ver_next=None,
+                      ver_value=None, *, max_chain: int = 0):
     """:func:`leaf_slots_ref` on row ``jax_index(leaf_id, ML)`` of the leaf
     pool [ML, L], plus that row's version head at the hit (-1 where the
-    key is absent): (slot, exists, vhead)."""
+    key is absent): (slot, exists, vhead).  With ``snap_ts`` and the
+    version pools, also the value at that snapshot:
+    :func:`versioned_read_ref` of ``vhead`` (NOT_FOUND where absent)."""
     ML, L = leaf_keys.shape
     r = jax_index(leaf_id, ML)
     slot, exists = leaf_slots_ref(leaf_keys[r], queries)
     vhead = torch.where(exists, leaf_vhead[r, slot.clamp_max(L - 1)], -1)
-    return slot, exists, vhead
+    if snap_ts is None:
+        return slot, exists, vhead
+    value = versioned_read_ref(vhead, snap_ts, ver_ts, ver_next, ver_value,
+                               max_chain=max_chain)
+    return slot, exists, vhead, value
 
 
 def search_positions_ref(dir_keys: torch.Tensor, queries: torch.Tensor):

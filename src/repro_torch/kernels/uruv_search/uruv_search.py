@@ -6,9 +6,10 @@ They replace the Pallas TPU kernels ``index_descend``, ``leaf_slots`` and
 ``search_positions`` of ``src/repro/kernels/uruv_search/uruv_search.py``.
 ``leaf_slots`` has two entries: on gathered rows (the TPU kernel's
 signature) and :func:`leaf_slots_at`, in place on the leaf pool, which
-the store's ``locate`` uses.  A wrapper launches its kernel for a CUDA
-tensor and takes the plain twin in ``ref.py`` for a CPU tensor; any other
-device raises.
+the store's ``locate`` uses and which also walks each hit's version
+chain in the same launch (the lookup's ``versioned_read``, fused).  A
+wrapper launches its kernel for a CUDA tensor and takes the plain twin in
+``ref.py`` for a CPU tensor; any other device raises.
 """
 
 # uruvlint: disable-file=layering-index; reason: this IS the flat-directory rank kernel (the JAX twin lives in the rule's exempt repro/kernels/uruv_search)
@@ -30,18 +31,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "uruv_index_descend": (ctypes.POINTER(ctypes.c_longlong), _I, _I, _I,
                            _P, _I, _P, _P),
-    "uruv_leaf_slots": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P),
+    "uruv_leaf_slots": (_P, _I, _I, _P, _I, _P, _P, _P),
+    "uruv_leaf_slots_read": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
+                             _P, _I, _I, _P, _P, _P, _P, _P),
     "uruv_search_positions": (_P, _I, _P, _I, _P, _P),
 }
 _MAX_DEPTH = 32
 _I32 = torch.int32
-
-
-def _vec(width: int, *ptrs: int) -> int:
-    """4 (16-byte loads) when rows of ``width`` int32 and every base
-    pointer allow it, else 1: two variants of the same kernel."""
-    aligned = not any(p & 15 for p in ptrs)
-    return 4 if width % 4 == 0 and aligned else 1
 
 
 def index_descend(level_keys, level_child, queries: torch.Tensor):
@@ -80,7 +76,7 @@ def index_descend(level_keys, level_child, queries: torch.Tensor):
     buf = (ctypes.c_longlong * (3 * depth))(*ptrs, *caps)
     lib = _build.load("uruv_search", _SIGNATURES)
     _build.launch_counts["index_descend"] += 1
-    rc = lib.uruv_index_descend(buf, depth, F, _vec(F, *ptrs),
+    rc = lib.uruv_index_descend(buf, depth, F, _build.vec_for(F, *ptrs),
                                 queries.data_ptr(), P, out.data_ptr(),
                                 _build.stream_ptr(queries))
     _build.check(rc, "index_descend")
@@ -104,27 +100,38 @@ def leaf_slots(rows: torch.Tensor, queries: torch.Tensor):
         return slot, exists
     lib = _build.load("uruv_search", _SIGNATURES)
     _build.launch_counts["leaf_slots"] += 1
-    rc = lib.uruv_leaf_slots(rows.data_ptr(), None, None, P, L,
-                             _vec(L, rows.data_ptr()), queries.data_ptr(),
-                             P, slot.data_ptr(), exists.data_ptr(), None,
-                             _build.stream_ptr(rows))
+    rc = lib.uruv_leaf_slots(rows.data_ptr(), L,
+                             _build.vec_for(L, rows.data_ptr()),
+                             queries.data_ptr(), P, slot.data_ptr(),
+                             exists.data_ptr(), _build.stream_ptr(rows))
     _build.check(rc, "leaf_slots")
     return slot, exists
 
 
 def leaf_slots_at(leaf_keys: torch.Tensor, leaf_vhead: torch.Tensor,
-                  leaf_id: torch.Tensor, queries: torch.Tensor):
-    """The in-leaf rank in place on the leaf pool: for query i, row
-    ``r = jax_index(leaf_id[i], ML)`` of ``leaf_keys`` int32 [ML, L] gives
-    ``slot = #(row < q)`` and ``exists = slot < L & row[slot] == q``, and
-    ``vhead = leaf_vhead[r, min(slot, L - 1)]`` where it exists, else -1.
-    The same kernel as :func:`leaf_slots` (its launches count there),
-    without the [P, L] gather of rows."""
+                  leaf_id: torch.Tensor, queries: torch.Tensor,
+                  snap_ts: torch.Tensor, ver_ts: torch.Tensor,
+                  ver_next: torch.Tensor, ver_value: torch.Tensor, *,
+                  max_chain: int):
+    """The in-leaf rank in place on the leaf pool, with each hit's version
+    chain walked in the same launch: for query i, row ``r =
+    jax_index(leaf_id[i], ML)`` of ``leaf_keys`` int32 [ML, L] gives
+    ``slot = #(row < q)`` and ``exists = slot < L & row[slot] == q``,
+    ``vhead = leaf_vhead[r, min(slot, L - 1)]`` where it exists, else -1,
+    and ``value``, the read of that chain through the version pools
+    ``ver_ts``, ``ver_next``, ``ver_value`` (int32 [MV]) at ``snap_ts``
+    (int32, a scalar or [P]), at most ``max_chain`` steps, NOT_FOUND where
+    the key is absent: ``versioned_read`` of ``vhead`` fused into the
+    rank, without the [P, L] gather of rows.  Returns (slot, exists,
+    vhead, value); the launches count under ``leaf_slots_read``."""
     if _build.device_type(queries) == "cpu":
-        return leaf_slots_at_ref(leaf_keys, leaf_vhead, leaf_id, queries)
-    _build.require("leaf_slots_at", queries.device, _I32,
-                   leaf_keys=leaf_keys, leaf_vhead=leaf_vhead,
-                   leaf_id=leaf_id, queries=queries)
+        return leaf_slots_at_ref(leaf_keys, leaf_vhead, leaf_id, queries,
+                                 snap_ts, ver_ts, ver_next, ver_value,
+                                 max_chain=max_chain)
+    dev = queries.device
+    _build.require("leaf_slots_at", dev, _I32, leaf_keys=leaf_keys,
+                   leaf_vhead=leaf_vhead, leaf_id=leaf_id, queries=queries,
+                   ver_ts=ver_ts, ver_next=ver_next, ver_value=ver_value)
     if (leaf_keys.dim() != 2 or leaf_vhead.shape != leaf_keys.shape
             or min(leaf_keys.shape) < 1 or queries.dim() != 1
             or leaf_id.shape != queries.shape):
@@ -134,20 +141,28 @@ def leaf_slots_at(leaf_keys: torch.Tensor, leaf_vhead: torch.Tensor,
                          f"{tuple(queries.shape)}")
     ML, L = leaf_keys.shape
     P = queries.shape[0]
-    out = torch.empty((2, P), dtype=_I32, device=queries.device)
-    slot, vhead = out.unbind(0)
-    exists = torch.empty(P, dtype=torch.bool, device=queries.device)
+    MV = ver_ts.shape[0]
+    if (ver_ts.dim() != 1 or MV < 1 or ver_next.shape != (MV,)
+            or ver_value.shape != (MV,) or max_chain < 0):
+        raise ValueError("leaf_slots_at: version pools [MV] and "
+                         "max_chain >= 0 expected")
+    stride = _build.snap_stride("leaf_slots_at", snap_ts, P, dev)
+    out = torch.empty((3, P), dtype=_I32, device=dev)
+    exists = torch.empty(P, dtype=torch.bool, device=dev)
+    outs = (out[0], exists, out[1], out[2])
     if P == 0:
-        return slot, exists, vhead
+        return outs
     lk, lv = leaf_keys.data_ptr(), leaf_vhead.data_ptr()
     lib = _build.load("uruv_search", _SIGNATURES)
-    _build.launch_counts["leaf_slots"] += 1
-    rc = lib.uruv_leaf_slots(lk, lv, leaf_id.data_ptr(), ML, L,
-                             _vec(L, lk, lv), queries.data_ptr(), P,
-                             slot.data_ptr(), exists.data_ptr(),
-                             vhead.data_ptr(), _build.stream_ptr(queries))
+    _build.launch_counts["leaf_slots_read"] += 1
+    rc = lib.uruv_leaf_slots_read(
+        lk, lv, leaf_id.data_ptr(), ML, L, _build.vec_for(L, lk, lv),
+        queries.data_ptr(), P, snap_ts.data_ptr(), stride,
+        ver_ts.data_ptr(), ver_next.data_ptr(), ver_value.data_ptr(), MV,
+        max_chain, out[0].data_ptr(), exists.data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), _build.stream_ptr(queries))
     _build.check(rc, "leaf_slots_at")
-    return slot, exists, vhead
+    return outs
 
 
 def search_positions(dir_keys: torch.Tensor, queries: torch.Tensor):

@@ -20,7 +20,9 @@ from repro.core.ref import KEY_MAX, OP_DELETE, OP_INSERT, OP_SEARCH, RefStore
 
 import repro_torch.api as T
 
-from _torch_port import assert_same_store, fresh_jax_caches  # noqa: F401  (autouse)
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_store, bounded_jax_maps, fresh_jax_caches,
+)
 
 CFG = dict(leaf_cap=8, max_leaves=256, max_versions=1 << 12, tracker_cap=16,
            max_chain=16, index_fanout=4)

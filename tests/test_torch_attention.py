@@ -40,7 +40,9 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-from _torch_port import fresh_jax_caches  # noqa: F401  (autouse)
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    bounded_jax_maps, fresh_jax_caches,
+)
 
 RNG = np.random.default_rng(7)
 NEG_INF = -1e30

@@ -207,8 +207,9 @@ def test_leaf_slots_matches_twin(card, L, P):
 ])
 def test_leaf_slots_at_matches_twin(card, L, P):
     """In place on a pool: ids -1 and past both ends, hits and misses,
-    KEY_MAX - 1 and KEY_MAX; aligned and unaligned pools; one launch,
-    counted under leaf_slots."""
+    KEY_MAX - 1 and KEY_MAX; aligned and unaligned pools; a snapshot per
+    query over chains that cycle; one launch, counted under
+    leaf_slots_read."""
     rng = np.random.default_rng(L * 13 + P)
     ML = 300
     pool, _ = _rows_case(rng, ML, L)
@@ -221,19 +222,141 @@ def test_leaf_slots_at_matches_twin(card, L, P):
     q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
     q[: min(2, P)] = [KEY_MAX - 1, KEY_MAX][: min(2, P)]
     it, qt = _t(ids, card), _t(q, card)
+    pools = _chains(rng, 1 << 20, card)
+    snap = _t(rng.integers(0, 60, P), card)
     for lk, lv in ((_t(pool, card), _t(vh, card)),
                    (_unaligned(pool, card), _unaligned(vh, card))):
-        n0 = _build.launch_counts["leaf_slots"]
-        got = leaf_slots_at(lk, lv, it, qt)
+        n0 = _build.launch_counts["leaf_slots_read"]
+        got = leaf_slots_at(lk, lv, it, qt, snap, *pools, max_chain=64)
         torch.cuda.synchronize()
-        assert _build.launch_counts["leaf_slots"] == n0 + 1
-        _eq(got, leaf_slots_at_ref(lk, lv, it, qt))
+        assert _build.launch_counts["leaf_slots_read"] == n0 + 1
+        _eq(got, leaf_slots_at_ref(lk, lv, it, qt, snap, *pools,
+                                   max_chain=64))
+
+
+def _chains(rng, MV, dev):
+    """Version pools [MV] whose chains cycle: random next links, and
+    entries 0-4 self-loops newer than every snapshot (a walk through them
+    runs its full max_chain steps); tombstones among the values."""
+    ts = rng.integers(0, 50, MV)
+    nxt = rng.integers(-1, MV, MV)
+    ts[:5], nxt[:5] = 1000, np.arange(5)
+    val = rng.integers(-2, 99, MV)
+    val[::11] = TOMBSTONE
+    return tuple(_t(a, dev) for a in (ts, nxt, val))
+
+
+def _snaps(rng, P, dev):
+    """A [P] snapshot, and the scalar and the ``expand``-ed forms of one
+    snapshot for all."""
+    one = _t(37, dev)
+    return (_t(rng.integers(-3, 53, P), dev), one, one.expand(P))
+
+
+@pytest.mark.parametrize("max_chain", [0, 1, 64])
+@pytest.mark.parametrize("MV,P", [(128, 4099), (100_000, 4096), (1024, 1)])
+def test_versioned_read_matches_twin(card, MV, P, max_chain):
+    """Chains that cycle, heads -1 and into the self-loops, max_chain 0,
+    1 and 64, ragged P; the snapshot per query, as a scalar and as an
+    expanded scalar (stride 0): bit for bit, one launch a call."""
+    rng = np.random.default_rng(MV + P + max_chain)
+    pools = _chains(rng, MV, card)
+    vh = rng.integers(-1, MV, P)
+    vh[::7] = rng.integers(0, 5, len(vh[::7]))
+    vh = _t(vh, card)
+    for snap in _snaps(rng, P, card):
+        n0 = _build.launch_counts["versioned_read"]
+        got = versioned_read(vh, snap, *pools, max_chain=max_chain)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["versioned_read"] == n0 + 1
+        _eq(got, versioned_read_ref(vh, snap, *pools, max_chain=max_chain))
+
+
+@pytest.mark.parametrize("max_chain", [1, 64])
+@pytest.mark.parametrize("L,P", [
+    (8, 4099), (16, 4096), (64, 4096), (64, 1), (33, 500), (200, 300),
+])
+def test_leaf_slots_at_with_snapshot_matches_twin(card, L, P, max_chain):
+    """The fused rank-and-read: 16-byte rows (L = 8, 16, 64, 200) and
+    4-byte ones (L = 33, and every pool 4 bytes off a 16-byte boundary),
+    cyclic chains, max_chain 1 and 64, the snapshot per query and one for
+    all; bit for bit against the twin (rank, then versioned_read), one
+    launch counted under leaf_slots_read and nothing else."""
+    rng = np.random.default_rng(L * 17 + P + max_chain)
+    ML, MV = 300, 5000
+    pool, _ = _rows_case(rng, ML, L)
+    vh = rng.integers(-1, MV, (ML, L)).astype(np.int32)
+    vh[:, ::9] = rng.integers(0, 5, vh[:, ::9].shape)   # into self-loops
+    ids = rng.integers(-ML - 2, ML + 2, P).astype(np.int32)
+    rows = pool[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1)]
+    q = rng.integers(0, 5100, P).astype(np.int32)
+    hit = rng.random(P) < 0.6
+    q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+    q[: min(2, P)] = [KEY_MAX - 1, KEY_MAX][: min(2, P)]
+    it, qt = _t(ids, card), _t(q, card)
+    pools = _chains(rng, MV, card)
+    for lk, lv in ((_t(pool, card), _t(vh, card)),
+                   (_unaligned(pool, card), _unaligned(vh, card))):
+        for snap in _snaps(rng, P, card):
+            _build.launch_counts.clear()
+            got = leaf_slots_at(lk, lv, it, qt, snap, *pools,
+                                max_chain=max_chain)
+            torch.cuda.synchronize()
+            assert dict(_build.launch_counts) == {"leaf_slots_read": 1}
+            _eq(got, leaf_slots_at_ref(lk, lv, it, qt, snap, *pools,
+                                       max_chain=max_chain))
+
+
+@pytest.mark.parametrize("max_chain", [1, 64])
+@pytest.mark.parametrize("L,Q,S,valid", [
+    (64, 32768, 1, "ragged"),     # the main path's worklist shape
+    (64, 4096, 1, "none"),        # every row padding
+    (8, 777, 3, "ragged"),
+    (16, 300, 2, "random"),
+    (33, 257, 3, "random"),       # L % 4 != 0: the 4-byte variant
+    (200, 100, 2, "random"),      # more chunks than lanes
+])
+def test_range_scan_matches_twin(card, L, Q, S, valid, max_chain):
+    """The row kernel: all-invalid and ragged worklists (valid rows first,
+    as ``bulk_range`` lays them out), random pvalid, L = 8, 16, 33, 64,
+    200, inverted intervals, cyclic chains, max_chain 1 and 64, and the
+    leaf pools 4 bytes off a 16-byte boundary: bit for bit, one launch a
+    call."""
+    rng = np.random.default_rng(L * 101 + Q + S + max_chain)
+    ML, MV = 2048, 50_000
+    lkeys = np.sort(rng.integers(0, 10_000, (ML, L)), axis=1)
+    lvh = rng.integers(-1, MV, (ML, L))
+    lvh[:, ::9] = rng.integers(0, 5, lvh[:, ::9].shape)
+    lcnt = rng.integers(0, L + 1, ML)
+    if valid == "random":
+        pvalid = rng.random((Q, S)) < 0.8
+    else:
+        n_ok = 0 if valid == "none" else Q * S // 7 + 3
+        pvalid = (np.arange(Q * S) < n_ok).reshape(Q, S)
+    lids = np.where(pvalid, rng.integers(-ML - 2, ML + 2, (Q, S)), 0)
+    k1 = rng.integers(0, 10_000, Q)
+    k2 = k1 + rng.integers(-500, 3000, Q)
+    head = (_t(lids, card), _t(pvalid, card, torch.bool), _t(k1, card),
+            _t(k2, card), _t(rng.integers(0, 60, Q), card))
+    pools = _chains(rng, MV, card)
+    for put in (_t, _unaligned):
+        leaves = (put(lkeys, card), put(lvh, card), _t(lcnt, card))
+        n0 = _build.launch_counts["range_scan"]
+        got = range_scan(*head, *leaves, *pools, max_chain=max_chain)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["range_scan"] == n0 + 1
+        want = range_scan_ref(*head, *leaves, *pools, max_chain=max_chain)
+        _eq(got, want)
+        if valid == "none":
+            assert bool((got[0] == KEY_MAX).all())
 
 
 def test_locate_is_two_launches(card):
-    """One ``backend.locate`` on the card launches exactly one
-    index_descend and one leaf_slots (in place) and nothing else of the
-    port's, and equals ``locate`` on the CPU."""
+    """One ``backend.locate`` on the card, a lookup, launches exactly one
+    index_descend and one leaf_slots_read (the rank in place, with the
+    chain walked in its launch) and nothing else of the port's, no
+    versioned_read, and equals ``locate`` on the CPU: at a snapshot per
+    query, one for all, and a strided view of per-query snapshots."""
     rng = np.random.default_rng(2)
     ML, L, n_sep = 2048, 64, 1500
     seps = np.sort(rng.choice(10**7, n_sep, replace=False)).astype(np.int32)
@@ -246,19 +369,26 @@ def test_locate_is_two_launches(card):
     lvh = rng.integers(-1, 10**6, (ML, L)).astype(np.int32)
     q = rng.integers(-10, 10**7, 4096).astype(np.int32)
     q[:100] = lk[rng.integers(0, ML, 100), 5]
+    snaps = rng.integers(0, 60, 2 * 4096)
     out = {}
     for dev in ("cpu", card):
         idx = TI.build(TI.index_config(ML, 16), ML, _t(pad_k, dev),
                        _t(pad_l, dev), n_sep)
         args = (_t(lk, dev), _t(lvh, dev), _t(q, dev))
-        torch.cuda.synchronize()
-        _build.launch_counts.clear()
-        out[str(dev)] = TB.locate(idx, *args)
-        torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
-        assert counts == ({} if dev == "cpu" else
-                          {"index_descend": 1, "leaf_slots": 1})
-    _eq(out["cuda"], out["cpu"])
+        pools = _chains(np.random.default_rng(3), 1 << 16, dev)
+        forms = (_t(snaps[:4096], dev), _t(40, dev), _t(snaps, dev)[::2])
+        for n, snap in enumerate(forms):
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            got = TB.locate(idx, *args, snap, pools, max_chain=64)
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            assert counts == ({} if dev == "cpu" else
+                              {"index_descend": 1, "leaf_slots_read": 1})
+            out[f"{dev}-{n}"] = got
+    for n in range(3):
+        _eq(out[f"cuda-{n}"], out[f"cpu-{n}"])
+        _eq(out[f"cuda-{n}"][:6], out["cuda-1"][:6])
 
 
 def test_stream_ptr_is_the_current_stream(card):
@@ -324,6 +454,8 @@ def _drive(cfg, dev):
     with db.snapshot() as ts:
         res.append(db.range(0, 1999, ts))
         res.append(db.lookup(np.arange(0, 2000, 7, dtype=np.int32), ts))
+        page = db.scan_page(100, 900, ts, max_scan_leaves=32)
+        res += [page.items(), bool(page.truncated[0])]
     res.append(db.compact())
     db.reindex()
     TS.check_invariants(db.store)
@@ -341,8 +473,11 @@ def test_client_on_card_equals_cpu(card):
     _build.launch_counts.clear()
     res_p, store_p = _drive(cfg, "cpu")
     assert not _build.launch_counts
+    # lookups and apply passes read through the fused entry; the
+    # standalone versioned_read serves scan_page
     assert all(launched.get(k, 0) > 0 for k in
-               ("index_descend", "leaf_slots", "versioned_read", "range_scan"))
+               ("index_descend", "leaf_slots_read", "versioned_read",
+                "range_scan"))
     assert len(res_c) == len(res_p)
     for a, b in zip(res_c, res_p):
         if isinstance(a, np.ndarray):

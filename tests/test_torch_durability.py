@@ -51,7 +51,9 @@ from repro_torch.durability.recovery import replay
 from repro_torch.durability.wal import PAY_HEADER, REC_HEADER
 from repro_torch.serve.coalescer import AdmissionPolicy, Coalescer
 
-from _torch_port import assert_same_arrays, assert_same_store, fresh_jax_caches  # noqa: F401
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_arrays, assert_same_store, bounded_jax_maps, fresh_jax_caches,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -19,7 +19,9 @@ from repro.core.ref import KEY_MAX
 
 from repro_torch.core import index as TI
 
-from _torch_port import assert_same_arrays, fresh_jax_caches  # noqa: F401  (autouse)
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_arrays, bounded_jax_maps, fresh_jax_caches,
+)
 
 
 _j_split = jax.jit(JI.apply_split_delta)

@@ -42,7 +42,6 @@ from repro_torch.core import index as TI
 from repro_torch.kernels import _build
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
-from repro_torch.kernels.uruv_search import uruv_search as TS
 from repro_torch.kernels.uruv_search.ref import (
     index_descend_ref, leaf_slots_at_ref, leaf_slots_ref, search_positions_ref,
 )
@@ -52,7 +51,9 @@ from repro_torch.kernels.uruv_search.uruv_search import (
 from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
 
-from _torch_port import fresh_jax_caches  # noqa: F401  (autouse)
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    bounded_jax_maps, fresh_jax_caches,
+)
 
 TOMB = -(2**31) + 1
 
@@ -183,23 +184,85 @@ def _jax_locate(L, backend):
 def test_leaf_slots_at_matches_jax_locate(backend, L):
     """The in-place rank (wrapper on the CPU, and its twin) against the
     JAX package's ``locate`` with its two gathers: the same (slot, exists,
-    vhead) for leaf ids from the descent, -1 among them."""
+    vhead) for leaf ids from the descent, -1 among them; the wrapper's
+    fourth output is the read of those heads."""
     _, tidx, lk, lvh, q = _locate_case(L)
     want = _jax_locate(L, backend)
     _, _, leaf_id = index_descend(tidx.node_keys, tidx.node_child, _t(q))
     _eq(leaf_id, want[2])
     assert int((leaf_id == -1).sum()) > 0
     args = (_t(lk), _t(lvh), leaf_id, _t(q))
-    _eq(leaf_slots_at(*args), want[3:])
+    pools, snap = _version_pools(np.random.default_rng(L), 5000, len(q))
+    got = leaf_slots_at(*args, snap, *pools, max_chain=8)
+    _eq(got[:3], want[3:])
+    _eq(got[3], versioned_read_ref(_t(want[5]), snap, *pools, max_chain=8))
     _eq(leaf_slots_at_ref(*args), want[3:])
+
+
+def _version_pools(rng, MV, P):
+    """Random version pools [MV] (chains that may cycle, tombstones) and
+    snapshots [P] that fall before, inside and after the chains' ts."""
+    ts = rng.integers(0, 50, MV).astype(np.int32)
+    nxt = rng.integers(-1, MV, MV).astype(np.int32)
+    val = rng.integers(-2, 99, MV).astype(np.int32)
+    val[::11] = TOMB
+    snap = rng.integers(-3, 53, P).astype(np.int32)
+    return tuple(_t(a) for a in (ts, nxt, val)), _t(snap)
+
+
+@pytest.mark.parametrize("max_chain", [1, 16])
+@pytest.mark.parametrize("L", [8, 16, 33, 40])
+def test_leaf_slots_at_with_snapshot_is_rank_then_read(L, max_chain):
+    """The fused entry (wrapper on the CPU, and its twin) equals the
+    in-place rank followed by ``versioned_read`` of its version heads: the
+    same three rank outputs and, fourth, the value at each query's
+    snapshot, [P] and scalar.  Leaf ids -1 and past both ends; hits,
+    misses, KEY_MAX - 1 and KEY_MAX."""
+    rng = np.random.default_rng(L * 31 + max_chain)
+    ML, MV, P = 64, 2000, 500
+    lk = np.sort(rng.integers(0, 5000, (ML, L)), axis=1)
+    lk[rng.random((ML, L)) < 0.1] = KEY_MAX
+    lk = np.sort(lk, axis=1).astype(np.int32)
+    lvh = rng.integers(-1, MV, (ML, L)).astype(np.int32)
+    ids = rng.integers(-ML - 2, ML + 2, P).astype(np.int32)
+    rows = lk[np.clip(np.where(ids < 0, ids + ML, ids), 0, ML - 1)]
+    q = rng.integers(0, 5100, P).astype(np.int32)
+    hit = rng.random(P) < 0.6
+    q[hit] = rows[hit, rng.integers(0, L, P)[hit]]
+    q[:2] = [KEY_MAX - 1, KEY_MAX]
+    args = (_t(lk), _t(lvh), _t(ids), _t(q))
+    rank = leaf_slots_at_ref(*args)
+    pools, snap = _version_pools(rng, MV, P)
+    for s in (snap, _t(40), _t([25])):
+        want = versioned_read_ref(rank[2], s, *pools, max_chain=max_chain)
+        assert int((want != -1).sum()) > 0
+        for fn in (leaf_slots_at, leaf_slots_at_ref):
+            _eq(fn(*args, s, *pools, max_chain=max_chain), (*rank, want))
+
+
+@pytest.mark.parametrize("L", [8, 16, 40])
+def test_locate_with_snapshot_reads_each_hit(L):
+    """``backend.locate``: the descent and the in-place rank's twin, and
+    the value at the snapshot, the composition the store ran before the
+    fused entry (rank, mask, ``resolve``)."""
+    _, tidx, lk, lvh, q = _locate_case(L)
+    pools, snap = _version_pools(np.random.default_rng(L), 5000, len(q))
+    desc = index_descend(tidx.node_keys, tidx.node_child, _t(q))
+    plain = (*desc, *leaf_slots_at_ref(_t(lk), _t(lvh), desc[2], _t(q)))
+    got = TB.locate(tidx, _t(lk), _t(lvh), _t(q), snap, pools, max_chain=8)
+    _eq(got[:6], plain)
+    _eq(got[6], TB.resolve(torch.where(plain[4], plain[5], -1), snap,
+                           *pools, max_chain=8))
 
 
 @pytest.mark.parametrize("L", [8, 16, 40])
 def test_locate_matches_jax_locate(L):
     """The port's ``backend.locate`` on the CPU against the JAX package's
-    ``locate``: all six outputs, exactly."""
+    ``locate``: all six of its outputs, exactly."""
     _, tidx, lk, lvh, q = _locate_case(L)
-    _eq(TB.locate(tidx, _t(lk), _t(lvh), _t(q)), _jax_locate(L, JB.XLA))
+    pools, snap = _version_pools(np.random.default_rng(L), 5000, len(q))
+    _eq(TB.locate(tidx, _t(lk), _t(lvh), _t(q), snap, pools,
+                  max_chain=8)[:6], _jax_locate(L, JB.XLA))
 
 
 def test_leaf_slots_at_ids_follow_jax_index():
@@ -215,18 +278,20 @@ def test_leaf_slots_at_ids_follow_jax_index():
     vrows = np.asarray(jnp.asarray(lvh)[jnp.asarray(ids)])
     at = np.minimum(np.asarray(want_slot), L - 1)
     want_vh = np.where(want_ex, vrows[np.arange(P), at], -1)
-    got = leaf_slots_at(_t(lk), _t(lvh), _t(ids), _t(q))
-    _eq(got, (want_slot, want_ex, want_vh))
+    pools, snap = _version_pools(rng, 500, P)
+    got = leaf_slots_at(_t(lk), _t(lvh), _t(ids), _t(q), snap, *pools,
+                        max_chain=4)
+    _eq(got[:3], (want_slot, want_ex, want_vh))
     assert bool(got[1].all())
 
 
 def test_descend_variant_follows_width_and_alignment():
     """16-byte loads need rows of a multiple of 4 int32 and 16-byte
     aligned bases; anything else takes the 4-byte variant."""
-    assert TS._vec(16, 0x1000, 0x2000) == 4
-    assert TS._vec(6, 0x1000, 0x2000) == 1
-    assert TS._vec(16, 0x1000, 0x2004) == 1
-    assert TS._vec(40, 0x1000) == 4
+    assert _build.vec_for(16, 0x1000, 0x2000) == 4
+    assert _build.vec_for(6, 0x1000, 0x2000) == 1
+    assert _build.vec_for(16, 0x1000, 0x2004) == 1
+    assert _build.vec_for(40, 0x1000) == 4
 
 
 @pytest.mark.parametrize("MV,P,chain", [(128, 64, 4), (1024, 200, 16)])
@@ -245,6 +310,47 @@ def test_versioned_read_twin_matches_jax(MV, P, chain):
     args = tuple(_t(a) for a in (vh, snap, ts, nxt, val))
     _eq(versioned_read(*args, max_chain=chain), want)
     _eq(versioned_read_ref(*args, max_chain=chain), want)
+
+
+@pytest.mark.parametrize("MV,P,chain", [(128, 64, 4), (1024, 200, 16)])
+def test_versioned_read_scalar_snapshot_equals_per_query(MV, P, chain):
+    """One snapshot for all queries (a scalar, a [1] tensor, an expanded
+    view) reads what the same snapshot repeated as [P] reads."""
+    rng = np.random.default_rng(MV * 3 + P)
+    pools, _ = _version_pools(rng, MV, P)
+    vh = _t(rng.integers(-1, MV, P))
+    for snap in (-3, 0, 17, 49):
+        per_query = versioned_read(vh, _t(np.full(P, snap)), *pools,
+                                   max_chain=chain)
+        for s in (_t(snap), _t([snap]), _t(snap).expand(P)):
+            _eq(versioned_read(vh, s, *pools, max_chain=chain), per_query)
+            _eq(versioned_read_ref(vh, s, *pools, max_chain=chain),
+                per_query)
+        _eq(TB.resolve(vh, snap, *pools, max_chain=chain), per_query)
+
+
+def test_snap_stride_follows_shape_and_layout():
+    """A snapshot is one for all (stride 0) or one per query (stride 1);
+    other shapes, strides, dtypes or devices are refused."""
+    cpu = torch.device("cpu")
+    assert _build.snap_stride("k", _t(5), 8, cpu) == 0
+    assert _build.snap_stride("k", _t([5]), 8, cpu) == 0
+    assert _build.snap_stride("k", _t(5).expand(8), 8, cpu) == 0
+    assert _build.snap_stride("k", _t(np.arange(8)), 8, cpu) == 1
+    for bad in (_t(np.arange(16))[::2], _t(np.arange(7)),
+                _t(np.zeros((8, 1)))):
+        with pytest.raises(ValueError, match="snap_ts"):
+            _build.snap_stride("k", bad, 8, cpu)
+    with pytest.raises(TypeError, match="int32"):
+        _build.snap_stride("k", _t(np.arange(8), torch.int64), 8, cpu)
+    # the backend hands the kernels a copy of a [P] view with any other
+    # stride, and everything else as it came
+    strided = _t(np.arange(16))[::2]
+    fixed = TB._snapshot(strided, _t(np.arange(8)))
+    assert _build.snap_stride("k", fixed, 8, cpu) == 1
+    _eq(fixed, np.arange(0, 16, 2))
+    for ok in (_t(5), _t([5]), _t(5).expand(8), _t(np.arange(8))):
+        assert TB._snapshot(ok, fixed) is ok
 
 
 @pytest.mark.parametrize("Q,Sw,ML,L,MV,chain", [
@@ -351,7 +457,8 @@ def test_wrappers_count_no_launch_on_cpu():
     versioned_read(_t([-1, 0]), _t([3, 3]), _t([1]), _t([-1]), _t([7]),
                    max_chain=2)
     search_positions(_t([-5, 3, 9]), _t([0, 3, 100]))
-    leaf_slots_at(rows, rows, _t([0, -1, 3, 2]), _t([0, 5, 9, 40]))
+    leaf_slots_at(rows, rows, _t([0, -1, 3, 2]), _t([0, 5, 9, 40]), _t(3),
+                  _t([1]), _t([-1]), _t([7]), max_chain=2)
     assert dict(_build.launch_counts) == before
 
 

@@ -21,7 +21,9 @@ import repro_torch.api as T
 from repro_torch.core import lifecycle as LC
 from repro_torch.core import store as TS
 
-from _torch_port import assert_same_store, fresh_jax_caches  # noqa: F401
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_store, bounded_jax_maps, fresh_jax_caches,
+)
 
 FIXED = dict(auto_grow=False, auto_maintain=False)
 

@@ -26,7 +26,9 @@ from repro_torch.models import common as TC
 from repro_torch.models import transformer as TT
 from repro_torch.models.registry import get_model, params_from_numpy
 
-from _torch_port import fresh_jax_caches  # noqa: F401  (autouse)
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    bounded_jax_maps, fresh_jax_caches,
+)
 
 ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b"]
 TOL = dict(atol=5e-3, rtol=5e-3)

@@ -30,7 +30,9 @@ from repro_torch.models.registry import params_from_numpy
 from repro_torch.serve.coalescer import AdmissionPolicy, Coalescer, OpFuture
 from repro_torch.serve.engine import Engine, Request, prefix_hash
 
-from _torch_port import assert_same_store, fresh_jax_caches  # noqa: F401
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_store, bounded_jax_maps, fresh_jax_caches,
+)
 
 CFG = dict(leaf_cap=8, max_leaves=512, max_versions=1 << 14, max_chain=16)
 

@@ -22,8 +22,8 @@ from repro.core.ref import (
 from repro_torch.core import batch as TB
 from repro_torch.core import store as TS
 
-from _torch_port import (  # noqa: F401  (fresh_jax_caches: autouse)
-    assert_same_store, fresh_jax_caches, to_port,
+from _torch_port import (  # noqa: F401  (the fixtures: autouse)
+    assert_same_store, bounded_jax_maps, fresh_jax_caches, to_port,
 )
 
 W = 32
