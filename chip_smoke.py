@@ -16,7 +16,15 @@ Phases, one line each (any failure exits non-zero):
                and depth 1 to 6, on rows and pools at L = 8 to 200,
                ragged P, views 4 bytes off a 16-byte boundary (the 4-byte
                variants), leaf ids -1 and past both ends, queries
-               KEY_MAX - 1 and KEY_MAX
+               KEY_MAX - 1 and KEY_MAX; ``search_positions`` at the edges
+               of its staged design (directories of 0, 1, 1023, 1024 and
+               1025 entries, a multiple and a non-multiple of the
+               splitter stride, up to 524,289 entries, duplicate runs,
+               long KEY_MAX padding, views 4 bytes off a 16-byte
+               boundary; queries on and just below every splitter,
+               KEY_MIN, KEY_MAX - 2, KEY_MAX - 1, KEY_MAX; P of 1, 31 and
+               1000), also against ``torch.searchsorted``, one launch a
+               call
   4. main      the single-device CRUD + range path through ``Uruv.apply``:
                prefill ``--prefill`` distinct keys of a 2,000,000-key
                universe in plans of 4096, then ``--plans`` mixed plans of
@@ -43,7 +51,7 @@ Phases, one line each (any failure exits non-zero):
                cached prefix (KV copy + step-by-step decode).  Every
                prefix-table answer against a host dict, prefix reuse >= 256
                in the first wave's others and the follow-ups, the fresh
-               request's reuse printed (ROADMAP Queue 3 item 1), the launch
+               request's reuse printed (ROADMAP reference fault R1), the launch
                counts of all six kernels, the snapshot released
   8. cpu==cuda model  llama3.2-1b at full width with 2 layers, the same
                weights on the CPU and on cuda: prefill + 8 teacher-forced
@@ -92,7 +100,9 @@ Phases, one line each (any failure exits non-zero):
                ``latency_floor_ms``: the longest chain of dependent round
                trips their inputs need times the card's HBM load latency,
                read first by a pointer chase over 256 MiB
-               (``csrc/latency_probe.cu``).  The ``locate`` lines give one
+               (``csrc/latency_probe.cu``); the same probe over a warm
+               4 MiB cycle reads the L2 load latency (both on the
+               ``[latency]`` line).  The ``locate`` lines give one
                lookup, ``backend.locate`` at the main path's widest
                inputs, in two forms, fused and composed over gathered rows
                as the JAX package composes it (descent, gather, rank,
@@ -106,7 +116,10 @@ Phases, one line each (any failure exits non-zero):
                one fig9b plan's keys, and must equal its twin,
                ``torch.searchsorted`` (its ``library_device_ms`` too) and
                the rank of the multi-level index that replaced the flat
-               directory
+               directory; its ``round_trips`` (the queries with the
+               staged splitters, then the window) times the L2 latency
+               give its ``latency_floor_ms`` (``floor_by`` "l2": the
+               directory sits in L2)
 
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -172,7 +185,10 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
 PASS_KERNELS = ("index_descend", "leaf_slots_read", "range_scan")
 STORE_KERNELS = PASS_KERNELS + ("versioned_read",)
 SERVE_KERNELS = PASS_KERNELS + ("flash_attention", "decode_attention")
-LATENCY_PROBE = "latency_probe"   # csrc source of hbm_latency_ms' chase
+LATENCY_PROBE = "latency_probe"   # csrc source of load_latency_ms' chase
+L2_BYTES = 50 * 2**20         # H100 SXM L2 cache
+HBM_CHASE_MIB = 256           # latency probe cycles: five times the L2 ...
+L2_CHASE_MIB = 4              # ... and far past L1, well inside the L2
 SCAN_PAGES = 8                # main path: scan_page calls under the snapshot
 DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
 WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
@@ -293,9 +309,9 @@ def parity_edge_cases(rng, edge_rng, dev) -> None:
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
     from repro_torch.kernels.uruv_range.uruv_range import range_scan
     from repro_torch.kernels.uruv_search.ref import (
-        index_descend_ref, leaf_slots_ref, search_positions_ref)
+        index_descend_ref, leaf_slots_ref)
     from repro_torch.kernels.uruv_search.uruv_search import (
-        index_descend, leaf_slots, search_positions)
+        index_descend, leaf_slots)
     from repro_torch.kernels.versioned_read.ref import versioned_read_ref
     from repro_torch.kernels.versioned_read.versioned_read import (
         versioned_read)
@@ -366,24 +382,79 @@ def parity_edge_cases(rng, edge_rng, dev) -> None:
         check(all(same(a, b) for a, b in zip(got, want)),
               f"range_scan != plain (Q={Q}, S={S}, L={L})")
         n_cases += 1
-    # flat-directory rank: empty, one-entry, ragged and KEY_MAX-padded
-    # sorted directories; queries below dir[0], on every entry, and up to
-    # KEY_MAX - 2 (the valid key domain)
-    for n_dir, n_pad in ((0, 0), (1, 0), (1000, 0), (777, 300), (5, 1 << 17)):
-        d = np.sort(rng.choice(10**7, n_dir, replace=False)).astype(np.int32)
-        d = np.concatenate([d, np.full(n_pad, KEY_MAX, np.int32)])
-        q = np.concatenate([rng.integers(-10, 10**7 + 10, 3000), d[:n_dir],
-                            d[:n_dir] - 1, [KEY_MIN, KEY_MAX - 2]])
-        q = t(q.astype(np.int32))
-        got = search_positions(t(d), q)
-        check(same(got, search_positions_ref(t(d), q)),
-              f"search_positions != plain (n_dir={n_dir}, pad={n_pad})")
-        n_cases += 1
+    n_cases += search_positions_edge_cases(rng, dev)
     n_cases += locate_edge_cases(edge_rng, dev)
     n_cases += chain_edge_cases(np.random.default_rng(edge_rng.integers(
         1 << 30)), dev)
     torch.cuda.synchronize()
     say("parity", cases=n_cases, result="exact")
+
+
+def search_positions_edge_cases(rng, dev) -> int:
+    """The flat-directory rank at the edges of its design (splitters at
+    stride S staged in shared memory, K <= 1024 of them, then one window):
+    directories of 0, 1, K - 1, K and K + 1 entries (the whole directory
+    staged up to K), a multiple and a non-multiple of S (38,400 = 150 x
+    256 and 38,401), 131,077 entries (K = 513), 524,288 (S = 512, K =
+    1024) and 524,289 (S = 1024: two passes over a window), with
+    duplicate runs and long KEY_MAX padding; queries on every entry
+    dir[128 k] (each splitter among them) and just below it,
+    KEY_MIN, KEY_MAX - 2, KEY_MAX - 1 and KEY_MAX; P of 1, 31 and 1000
+    (not a multiple of the block's 32); a directory view 4 bytes off a
+    16-byte boundary (the 4-byte variant).  Exact against the twin and
+    ``torch.searchsorted``, one counted launch per call."""
+    from repro_torch.core.ref import KEY_MAX, KEY_MIN
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.uruv_search.ref import search_positions_ref
+    from repro_torch.kernels.uruv_search.uruv_search import search_positions
+
+    def dir_case(n_real, n_pad, dups):
+        hi = max(n_real // 8, 1) if dups else 10**7
+        d = np.sort(rng.integers(-10**7, hi, n_real) if dups else
+                    rng.choice(10**7, n_real, replace=False))
+        return np.concatenate([d, np.full(n_pad, KEY_MAX)]).astype(np.int32)
+
+    def queries(d, n_rand):
+        sp = d[::128]
+        q = np.concatenate([rng.integers(-10**7 - 10, 10**7 + 10, n_rand),
+                            d[:1024], d[:1024] - 1, sp, sp - 1,
+                            [KEY_MIN, KEY_MAX - 2, KEY_MAX - 1, KEY_MAX]])
+        return q.astype(np.int64).clip(KEY_MIN, KEY_MAX).astype(np.int32)
+
+    def run(dk, qk, what):
+        before = _build.launch_counts["search_positions"]
+        got = search_positions(dk, qk)
+        check(_build.launch_counts["search_positions"] == before + 1,
+              f"search_positions: not one launch ({what})")
+        lib = (torch.searchsorted(dk, qk, right=True).int() - 1).clamp_min(0)
+        check(same(got, search_positions_ref(dk, qk)) and same(got, lib),
+              f"search_positions != plain or torch.searchsorted ({what})")
+
+    cases = [(0, 0, False), (1, 0, False), (1023, 0, False),
+             (1024, 0, False), (1025, 0, False), (38_400, 0, True),
+             (38_401, 0, False), (5, 1 << 17, False),
+             (22_430, (1 << 17) - 22_430, True), ((1 << 17) + 5, 0, True),
+             (1 << 19, 0, False), ((1 << 19) + 1, 0, True),
+             (777, 3000, True)]
+    n = 0
+    for n_real, n_pad, dups in cases:
+        d = dir_case(n_real, n_pad, dups)
+        q = queries(d, 3000)
+        what = f"n_dir={len(d)}, pad={n_pad}, dups={dups}"
+        run(torch.as_tensor(d, device=dev), torch.as_tensor(q, device=dev),
+            what)
+        # the same directory 4 bytes off a 16-byte boundary
+        buf = torch.zeros(len(d) + 1, dtype=torch.int32, device=dev)
+        buf[1:] = torch.as_tensor(d, device=dev)
+        run(buf[1:], torch.as_tensor(q, device=dev), what + ", unaligned")
+        n += 2
+    d = torch.as_tensor(dir_case(22_430, (1 << 17) - 22_430, False),
+                        device=dev)
+    q = torch.as_tensor(queries(d.cpu().numpy(), 100), device=dev)
+    for P in (1, 31, 1000):
+        run(d, q[torch.randperm(q.numel(), device=dev)[:P]], f"P={P}")
+        n += 1
+    return n
 
 
 def chain_edge_cases(rng, dev) -> int:
@@ -932,18 +1003,21 @@ def _walk_loads(vhead, snap, ver_ts, ver_next, max_chain) -> int:
     return int(loads.max()) if loads.numel() else 0
 
 
-def hbm_latency_ms(dev, steps: int = 20_000) -> float:
-    """The card's dependent-load latency from HBM, ms per load: a pointer
-    chase (``csrc/latency_probe.cu``, one thread) through one random
-    cycle over 256 MiB of int32, five times the 50 MB L2, timed with CUDA
-    events over ``steps`` loads.  A warm-up chase comes first; the timed
-    one goes on from where it stopped, so it touches no line the warm-up
-    brought into L2."""
+def load_latency_ms(dev, mib: int, steps: int = 20_000) -> float:
+    """The card's dependent-load latency, ms per load: a pointer chase
+    (``csrc/latency_probe.cu``, one thread, loads cached in L2 only)
+    through one random cycle over ``mib`` MiB of int32, timed with CUDA
+    events over ``steps`` loads after a warm-up chase.  Over a cycle
+    larger than the L2 it reads HBM: the warm-up takes ``steps`` loads and
+    the timed chase goes on from where it stopped, so it touches almost no
+    line the warm-up brought into L2.  Over a cycle of a few MiB it reads
+    L2: the warm-up walks the whole cycle, so every line is in L2."""
     import ctypes
 
     from repro_torch.kernels import _build
 
-    n = 64 << 20
+    n = mib << 18
+    warm = steps if mib << 20 > L2_BYTES else n
     gen = torch.Generator(device=dev).manual_seed(0)
     perm = torch.randperm(n, device=dev, generator=gen)
     nxt = torch.empty(n, dtype=torch.int32, device=dev)
@@ -955,21 +1029,34 @@ def hbm_latency_ms(dev, steps: int = 20_000) -> float:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p)})
 
-    def chase(first):
-        _build.check(lib.uruv_pointer_chase(nxt.data_ptr(), first, steps,
+    def chase(first, k):
+        _build.check(lib.uruv_pointer_chase(nxt.data_ptr(), first, k,
                                             out.data_ptr(),
                                             _build.stream_ptr(out)),
                      "pointer_chase")
-    chase(start)
+    chase(start, warm)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     first = int(out)          # synchronises: the warm-up is done
     t0.record()
-    chase(first)
+    chase(first, steps)
     t1.record()
     torch.cuda.synchronize()
     check(0 <= int(out) < n, "latency probe: the chase left the buffer")
     return t0.elapsed_time(t1) / steps
+
+
+def latencies(dev) -> dict:
+    """The HBM and the L2 dependent-load latencies (ms per load), printed
+    on the ``[latency]`` line: the chain walkers' floors take the first,
+    ``search_positions``' (its directory sits in L2) the second."""
+    lat = {"hbm": load_latency_ms(dev, HBM_CHASE_MIB),
+           "l2": load_latency_ms(dev, L2_CHASE_MIB)}
+    say("latency", hbm_dependent_load_us=f"{lat['hbm'] * 1e3:.4f}",
+        buffer_mib=HBM_CHASE_MIB,
+        l2_dependent_load_us=f"{lat['l2'] * 1e3:.4f}",
+        l2_buffer_mib=L2_CHASE_MIB, probe="csrc/latency_probe.cu")
+    return lat
 
 
 def _bound(nbytes: float, nops: float) -> tuple:
@@ -1043,12 +1130,12 @@ def locate_report(main) -> dict:
     return out
 
 
-def kernel_report(main) -> list:
+def kernel_report(main, lat_ms: float) -> list:
     """The store kernels at the widest inputs the main path gave them:
     exact against their twins, ``ms``, ``device_ms``, the twin's time,
     ``bound_ms``; the chain-walking rows add ``latency_floor_ms``, their
     longest chain of dependent round trips at these inputs times the
-    card's HBM load latency (:func:`hbm_latency_ms`)."""
+    card's HBM load latency ``lat_ms`` (:func:`latencies`)."""
     from repro_torch.core._ops import jax_index
     from repro_torch.core.ref import KEY_MAX
     from repro_torch.kernels.uruv_range.ref import range_scan_ref
@@ -1060,9 +1147,6 @@ def kernel_report(main) -> list:
     from repro_torch.kernels.versioned_read.versioned_read import (
         versioned_read)
 
-    lat_ms = hbm_latency_ms(torch.device("cuda"))
-    say("latency", hbm_dependent_load_us=f"{lat_ms * 1e3:.4f}",
-        buffer_mib=256, probe="csrc/latency_probe.cu")
     calls = main["calls"]
     launches = main["counts"]
     # the main path launches the leaf_slots kernel only in place, through
@@ -1230,7 +1314,18 @@ def lookup_inputs_report(fused_call, fn, ref, lat_ms) -> dict:
                 latency_floor_ms=round_trips * lat_ms)
 
 
-def search_positions_report(main, api, rng) -> list:
+def _search_trips(n_dir: int) -> int:
+    """The dependent round trips of one ``search_positions`` query: the
+    query's load with the block's staged splitters, then the window's
+    (none when the whole directory is staged: ``n_dir`` <= 1024, kSpMax
+    in ``csrc/uruv_search.cu``).  Up to 524,288 entries the window (S <=
+    512) is one pass of 16-byte loads; larger directories are not
+    reported."""
+    check(n_dir <= 1 << 19, f"search_positions: no trip count for {n_dir}")
+    return 1 if n_dir <= 1024 else 2
+
+
+def search_positions_report(main, api, rng, l2_ms: float) -> list:
     """The flat-directory rank on the main store's directory (length
     ``n_leaves``) and on that directory padded with KEY_MAX to
     ``max_leaves``, as the TPU wrapper pads, for the keys of one fig9b
@@ -1240,7 +1335,12 @@ def search_positions_report(main, api, rng) -> list:
     just before the two calls and read just after (``side_launches``).
     Then each result is held against the twin,
     ``torch.searchsorted`` (its library time) and ``max(rank_right - 1,
-    0)`` of the store's multi-level index: exact."""
+    0)`` of the store's multi-level index: exact.  Each reading adds
+    ``round_trips`` (:func:`_search_trips`) and ``latency_floor_ms``,
+    those trips times the card's L2 load latency ``l2_ms`` (the directory
+    sits in L2: ``floor_by`` "l2").  The JSON row is the padded
+    directory's, the TPU kernel's own input, with the ``n_leaves``
+    reading nested."""
     from repro_torch.core import index as I
     from repro_torch.core import store as S
     from repro_torch.core.ref import KEY_MAX
@@ -1283,23 +1383,33 @@ def search_positions_report(main, api, rng) -> list:
         bound_ms, bound_by = _bound(
             4 * n_dir + 2 * 4 * P, P * max(1, int(np.ceil(np.log2(n_dir)))))
         err = max_abs_err((got[k],), (twin,))
+        trips = _search_trips(n_dir)
         say("kernel", name="search_positions", directory=k,
             shape=f"ML={n_dir},P={P}", ms=f"{ms:.5f}",
             device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.6f}",
-            library_ms=f"{library_ms:.5f}",
+            latency_floor_ms=f"{trips * l2_ms:.6f}", round_trips=trips,
+            floor_by="l2", library_ms=f"{library_ms:.5f}",
             library_device_ms=f"{library_dev_ms:.5f}", max_abs_err=err,
             launches=launches, side_launches=side)
         rows.append(dict(
             name="search_positions", route="cuda",
             source=KERNELS["search_positions"][0],
             replaces=KERNELS["search_positions"][1], launches=launches,
-            side_launches=side, max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, library_device_ms=library_dev_ms))
+            side_launches=side, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            device_ms_by=dev_by, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, round_trips=trips,
+            latency_floor_ms=trips * l2_ms, floor_by="l2",
+            library_ms=library_ms, library_device_ms=library_dev_ms,
+            shape=f"ML={n_dir},P={P}"))
     # the JSON line holds one row per kernel: the TPU kernel's own input,
-    # the directory padded to max_leaves
-    return rows[-1:]
+    # the directory padded to max_leaves, with the n_leaves reading nested
+    padded_row, leaves_row = rows[1], rows[0]
+    padded_row["n_leaves"] = {
+        k: v for k, v in leaves_row.items()
+        if k not in ("name", "route", "source", "replaces", "launches",
+                     "side_launches")}
+    return [padded_row]
 
 
 # ---------------------------------------------------------------------------
@@ -1425,7 +1535,7 @@ def serve_phase(args, rng) -> dict:
     # than its first turn), a follow-up of the first of them, and one
     # fresh request on the system prompt.  A follow-up finds its donor
     # through the conversation's own prefix keys.  The fresh request
-    # shows the engine's known fault (ROADMAP Queue 3 item 1): re-admitting
+    # shows the engine's known fault (ROADMAP reference fault R1): re-admitting
     # a slot retires every prefix key that slot published, the shared
     # system-prompt keys included, so it finds no donor; its reuse is
     # printed, not gated, and reads 256 once the fault is fixed.
@@ -1503,7 +1613,7 @@ def serve_phase(args, rng) -> dict:
         decode_ms_per_tick=f"{np.mean(decode_ms):.3f}",
         reused=json.dumps([r.prefix_reused for r in reqs]).replace(" ", ""),
         fresh_reused=fresh.prefix_reused,
-        fresh_fault=("ROADMAP-Queue3-item1" if fresh.prefix_reused
+        fresh_fault=("ROADMAP-reference-fault-R1" if fresh.prefix_reused
                      < SYSTEM_PROMPT else "fixed"),
         max_memory_allocated_mib=(
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f}"),
@@ -1726,7 +1836,8 @@ def durability_phase(args, api, rng, card: str,
     for p in range(n1 + n2):
         if p == n1 // 2:
             # registered inside the delta checkpoint: a snapshot takes a
-            # clock tick that no WAL record carries (ROADMAP Queue 3 item 2)
+            # clock tick that no WAL record carries (ROADMAP reference
+            # fault R2)
             held = db.acquire_snapshot()
             held_val = oracle.val.copy()
         if p == n1:
@@ -1988,8 +2099,9 @@ def main() -> int:
     facts = main_res["facts"]
     durability_phase(args, api, rng, card,
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))
-    rows = (kernel_report(main_res) + attention_report(serve_res)
-            + search_positions_report(main_res, api, rng))
+    lat = latencies(torch.device("cuda"))
+    rows = (kernel_report(main_res, lat["hbm"]) + attention_report(serve_res)
+            + search_positions_report(main_res, api, rng, lat["l2"]))
     locate_report(main_res)
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,11 @@
 // The card's dependent-load latency: one thread follows a cyclic chain of
 // indices through a buffer, the address of each load the value of the
-// one before, so no two loads overlap.  Over a buffer far larger than the
-// 50 MB L2 (loads cached in L2 only) nearly every step is a round trip
-// to HBM.  It ports no TPU kernel: chip_smoke times it to put a latency
-// floor beside the bound of the kernels that walk version chains.
+// one before, so no two loads overlap.  Loads are cached in L2 only, so
+// over a buffer far larger than the 50 MB L2 nearly every step is a round
+// trip to HBM, and over a warm buffer of a few MiB every step is an L2
+// hit.  It ports no TPU kernel: chip_smoke times it both ways to put a
+// latency floor beside the bound of the kernels that walk version chains
+// (HBM) and of search_positions, whose directory sits in L2.
 #include <cuda_runtime.h>
 
 namespace {

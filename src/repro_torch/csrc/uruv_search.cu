@@ -1,6 +1,7 @@
 // Uruv locate kernels for Hopper: the multi-level fat-node descent, the
 // in-leaf rank (on gathered rows, or in place on the leaf pool) and the
-// flat-directory rank.
+// flat-directory rank (splitters staged in shared memory, then one
+// window).
 //
 // index_descend replaces the Pallas TPU kernel index_descend
 // (src/repro/kernels/uruv_search/uruv_search.py).  The TPU version pins
@@ -61,6 +62,33 @@
 //
 // In both kernels, lanes past P follow the last query and write nothing,
 // so every lane of a warp takes part in every shuffle.
+//
+// search_positions replaces the Pallas TPU kernel search_positions (same
+// file), which counts #(dir <= q) by comparing every query with every
+// directory tile in VMEM.  Here the directory (512 KiB at ML = 131,072)
+// sits in L2, and a one-thread binary search is a chain of log2(ML)
+// dependent L2 round trips (17 at ML = 131,072).  What bounds the rank is
+// that chain's length, not bytes, so the search takes two round trips:
+//   * a block of 32 warps stages K <= 1024 splitters dir[0], dir[S],
+//     dir[2S], ... in shared memory, one independent load a thread, in
+//     flight with the queries' loads (the whole directory, S = 1, when
+//     it fits);
+//   * each warp takes one query: two 32-way ballot steps over the shared
+//     splitters give the last one <= q (the splitters are sorted, so a
+//     ballot is a prefix of lanes), none when q < dir[0];
+//   * the warp reads that splitter's window of S entries, S / 128
+//     16-byte loads a lane all in flight at once, and sums the entries
+//     <= q with __reduce_add_sync.  Runs of equal keys (the KEY_MAX
+//     padding) need nothing more: a splitter past the last entry <= q is
+//     > q, so no entry after its window's start counts.
+// A block fetches about K + S cache lines: one per staged splitter, S / 32
+// for each of its 32 windows.  So the C entry takes the power-of-two
+// multiple S of 128 with K <= 1024 and K + S least: S = 256, K = 512 at
+// ML = 131,072 (768 lines; S = 128 and S = 512 measured slower), S = 128,
+// K = 176 at the 22,430-leaf directory.  A directory off a 16-byte
+// boundary takes the 4-byte variant (VEC = 1), the same kernel.  The count
+// is exact for every n_dir and query, KEY_MAX included; the directory must
+// be sorted, as the reference's searchsorted needs it to be.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -249,26 +277,105 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void search_positions_kernel(const int* __restrict__ dir, int n_dir,
-                                        const int* __restrict__ queries, int n,
-                                        int* __restrict__ pos) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int q = queries[i];
-  // count = #(dir <= q) over the sorted directory (Khuong-Morin
-  // branch-free search: the loop trip count depends on n_dir only)
-  int count = 0;
-  if (n_dir > 0) {
-    int base = 0;
-    int len = n_dir;
-    while (len > 1) {
-      const int half = len >> 1;
-      base = (__ldg(dir + base + half) <= q) ? base + half : base;
-      len -= half;
+// search_positions: kSpThreads / 32 queries a block, one warp each.
+constexpr int kSpThreads = 1024;
+constexpr int kSpMax = 1024;    // splitters a block stages: K <= kSpMax
+constexpr int kSpWindow = 128;  // the least window: 32 lanes x 16 bytes
+
+// the shared-memory slot of splitter k: a pad word after every 32, so the
+// first search step (lane l reads splitter 32 l) hits 32 banks
+__device__ __forceinline__ int sp_slot(int k) { return k + (k >> 5); }
+
+// #(dir[k] <= q) for k in [lo, hi), summed over the warp (lo a multiple
+// of VEC, dir 16-byte aligned when VEC == 4).  A pass reads NC chunks of
+// VEC ints a lane, all in flight together; a window of at most
+// 32 NC VEC entries takes one pass, one round trip.  Only the
+// directory's last chunk can be partial.
+template <int VEC, int NC>
+__device__ __forceinline__ int window_count(const int* __restrict__ dir,
+                                            long long lo, long long hi,
+                                            int q, int lane) {
+  int cnt = 0;
+  for (long long pass = lo; pass < hi; pass += 32LL * VEC * NC) {
+    int v[NC][VEC];
+    int live[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const long long b = pass + static_cast<long long>(c * 32 + lane) * VEC;
+      live[c] = b + VEC <= hi ? VEC : (b < hi ? static_cast<int>(hi - b) : 0);
+      if (live[c] == VEC) {
+        load_chunk<VEC>(dir + b, v[c]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          v[c][e] = e < live[c] ? __ldg(dir + b + e) : 0;
+      }
     }
-    count = base + (__ldg(dir + base) <= q);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) cnt += (e < live[c]) & (v[c][e] <= q);
   }
-  pos[i] = count > 0 ? count - 1 : 0;
+  return __reduce_add_sync(kFull, cnt);
+}
+
+// Splitter k is dir[k * S], k < K = ceil(n_dir / S).  The block stages
+// them in shared memory (one load a thread, in flight with the queries),
+// each warp finds its query's last splitter j <= q in two 32-way ballot
+// steps (K <= 1024), and counts the window [j S, min((j + 1) S, n_dir))
+// in one round trip when S <= 32 NC VEC.  S == 1 stages the whole
+// directory: no window.
+template <int VEC, int NC>
+__global__ void __launch_bounds__(kSpThreads)
+    search_positions_kernel(const int* __restrict__ dir, int n_dir, int S,
+                            int K, const int* __restrict__ queries, int n,
+                            int* __restrict__ pos) {
+  __shared__ int sp[kSpMax + kSpMax / 32];
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * (kSpThreads / 32) + threadIdx.x / 32;
+  const bool live = i < n;
+  const int q = __ldg(queries + (live ? i : n - 1));
+  if (threadIdx.x < K)
+    sp[sp_slot(threadIdx.x)] =
+        __ldg(dir + static_cast<long long>(threadIdx.x) * S);
+  __syncthreads();
+  // the splitters form a sorted run, so each ballot is a prefix of lanes
+  const unsigned top = __ballot_sync(
+      kFull, lane * 32 < K && sp[sp_slot(lane * 32)] <= q);
+  int count = 0;  // q below dir[0] (or no directory): 0
+  if (top != 0) {
+    const int j1 = __popc(top) - 1;
+    const int k = j1 * 32 + lane;
+    const int j = j1 * 32 - 1 +
+                  __popc(__ballot_sync(kFull, k < K && sp[sp_slot(k)] <= q));
+    // every entry before splitter j is <= q; every entry from splitter
+    // j + 1 on is > q
+    const long long lo = static_cast<long long>(j) * S;
+    const long long hi = lo + S < n_dir ? lo + S : n_dir;
+    count = static_cast<int>(
+        S == 1 ? lo + 1 : lo + window_count<VEC, NC>(dir, lo, hi, q, lane));
+  }
+  if (live && lane == 0) pos[i] = count > 0 ? count - 1 : 0;
+}
+
+template <int VEC>
+int launch_search(int NC, const int* dir, int n_dir, int S, int K,
+                  const int* queries, int n, int* pos, cudaStream_t s) {
+  const unsigned blocks = uruv::blocks_for(n, kSpThreads / 32);
+  switch (NC) {
+    case 1:
+      search_positions_kernel<VEC, 1>
+          <<<blocks, kSpThreads, 0, s>>>(dir, n_dir, S, K, queries, n, pos);
+      break;
+    case 2:
+      search_positions_kernel<VEC, 2>
+          <<<blocks, kSpThreads, 0, s>>>(dir, n_dir, S, K, queries, n, pos);
+      break;
+    default:
+      search_positions_kernel<VEC, 4>
+          <<<blocks, kSpThreads, 0, s>>>(dir, n_dir, S, K, queries, n, pos);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // lanes per query: the power of two covering a row's chunks, at most 32
@@ -358,14 +465,40 @@ int slots_entry(const int* keys, const int* vhead, const int* ids,
 
 }  // namespace
 
-extern "C" int uruv_search_positions(const int* dir, int n_dir,
+// pos[i] = max(#(dir <= queries[i]) - 1, 0) over the sorted directory
+// dir [n_dir].  vec 4 takes 16-byte window loads (dir 16-byte aligned),
+// vec 1 4-byte ones.  The splitter stride S and count K follow from
+// n_dir: the whole directory (S = 1) when it fits in kSpMax; else the
+// power-of-two multiple S of kSpWindow with K <= kSpMax and K + S least
+// (the smaller S on a tie).  A block fetches about K + S cache lines (K
+// splitters, 32 windows of S / 32 lines), so K + S is the cost.
+extern "C" int uruv_search_positions(const int* dir, int n_dir, int vec,
                                      const int* queries, int n, int* pos,
                                      void* stream) {
-  constexpr int kBlock = 256;
-  search_positions_kernel<<<uruv::blocks_for(n, kBlock), kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      dir, n_dir, queries, n, pos);
-  return static_cast<int>(cudaGetLastError());
+  if (n_dir < 0 || n < 1 || (vec != 1 && vec != 4) ||
+      (vec == 4 && misaligned(dir)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto splitters = [n_dir](long long S) {
+    return (n_dir + S - 1) / S;
+  };
+  long long S = 1;
+  if (n_dir > kSpMax) {
+    S = kSpWindow;
+    while (splitters(S) > kSpMax ||
+           splitters(2 * S) + 2 * S < splitters(S) + S)
+      S *= 2;
+  }
+  const int K = static_cast<int>(splitters(S));
+  // chunks a lane reads in one pass over the window: S / (32 vec), at
+  // most 4 (the 4-byte variant past S = 128 takes more passes)
+  const long long chunks = S / (32 * vec);
+  const int NC = chunks >= 4 ? 4 : (chunks >= 2 ? 2 : 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return launch_search<4>(NC, dir, n_dir, static_cast<int>(S), K, queries,
+                            n, pos, s);
+  return launch_search<1>(NC, dir, n_dir, static_cast<int>(S), K, queries, n,
+                          pos, s);
 }
 
 // levels: depth key-level pointers, depth child-level pointers, depth

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "uruv_leaf_slots": (_P, _I, _I, _P, _I, _P, _P, _P),
     "uruv_leaf_slots_read": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
                              _P, _I, _I, _P, _P, _P, _P, _P),
-    "uruv_search_positions": (_P, _I, _P, _I, _P, _P),
+    "uruv_search_positions": (_P, _I, _I, _P, _I, _P, _P),
 }
 _MAX_DEPTH = 32
 _I32 = torch.int32
@@ -182,10 +182,14 @@ def search_positions(dir_keys: torch.Tensor, queries: torch.Tensor):
     pos = torch.empty(P, dtype=torch.int32, device=queries.device)
     if P == 0:
         return pos
+    dk = dir_keys.data_ptr()
     lib = _build.load("uruv_search", _SIGNATURES)
     _build.launch_counts["search_positions"] += 1
-    rc = lib.uruv_search_positions(dir_keys.data_ptr(), dir_keys.shape[0],
-                                   queries.data_ptr(), P, pos.data_ptr(),
+    # windows start at multiples of 128 entries: only the base's alignment
+    # picks the 16-byte variant
+    rc = lib.uruv_search_positions(dk, dir_keys.shape[0],
+                                   _build.vec_for(4, dk), queries.data_ptr(),
+                                   P, pos.data_ptr(),
                                    _build.stream_ptr(queries))
     _build.check(rc, "search_positions")
     return pos

@@ -413,19 +413,32 @@ def test_stream_ptr_is_the_current_stream(card):
 @pytest.mark.parametrize("n_dir,n_q", [
     (64, 16), (1000, 333), (4096, 256), (7, 5), (1, 40),
     (1 << 17, 4096),                         # the main store's max_leaves
+    # the staged design's edges: no directory, K - 1, K and K + 1 of the
+    # K = 1024 splitters (the whole directory staged up to K), a multiple
+    # and a non-multiple of the stride (S = 256 at both), K = 513 past
+    # 131,072, S = 512 at K = 1024 and S = 1024 (two passes a window);
+    # P of 1, 31 and not a multiple of the block's 32 queries
+    (0, 64), (1023, 500), (1024, 500), (1025, 500), (38_400, 700),
+    (38_401, 700), ((1 << 17) + 5, 4096), (1 << 19, 2000),
+    ((1 << 19) + 1, 2000), (1 << 17, 1), (22_430, 31), (1 << 17, 1000),
 ])
 def test_search_positions_matches_twin(card, n_dir, n_q):
-    """The flat-directory rank kernel at the sweep shapes and at ML =
-    131,072, against its twin and ``torch.searchsorted``: exact.  The
-    large case pads a sorted directory with KEY_MAX as the TPU wrapper
-    does; queries stay in the valid key domain (below KEY_MAX - 1)."""
+    """The flat-directory rank kernel at the sweep shapes, at ML =
+    131,072 and at the edges of its design, against its twin and
+    ``torch.searchsorted``: exact, one counted launch.  Directories past
+    40,000 entries are padded with KEY_MAX as the TPU wrapper pads; the
+    queries hit every splitter (dir[128 k]) and the key just below it,
+    and KEY_MIN, KEY_MAX - 2, KEY_MAX - 1 and KEY_MAX."""
     rng = np.random.default_rng(n_dir + n_q)
     n_real = min(n_dir, 40_000)
     d = np.full(n_dir, KEY_MAX, np.int32)
     d[:n_real] = np.sort(rng.choice(10**7, n_real, replace=False))
-    d[0] = KEY_MIN
+    d[:1] = KEY_MIN
+    sp = d[::128].astype(np.int64)
+    edges = np.concatenate([[KEY_MIN, KEY_MAX - 2, KEY_MAX - 1, KEY_MAX],
+                            d[:4], sp, sp - 1]).clip(KEY_MIN, KEY_MAX)
     q = rng.integers(-10, 10**7 + 10, n_q).astype(np.int32)
-    q[: min(4, n_q)] = d[: min(4, n_q)]
+    q[: min(len(edges), n_q)] = edges[:n_q]
     dk, qk = _t(d, card), _t(q, card)
     n0 = _build.launch_counts["search_positions"]
     got = search_positions(dk, qk)
@@ -434,6 +447,67 @@ def test_search_positions_matches_twin(card, n_dir, n_q):
     _eq(got, search_positions_ref(dk, qk))
     lib = (torch.searchsorted(dk, qk, right=True).int() - 1).clamp_min(0)
     _eq(got, lib)
+
+
+def _dup_directory(rng, n_real, n_pad):
+    """A sorted directory of ``n_real`` keys drawn from n_real / 8 values
+    (runs of equal keys), then ``n_pad`` KEY_MAX."""
+    d = np.sort(rng.integers(-10**6, max(n_real // 8, 1), n_real))
+    return np.concatenate([d, np.full(n_pad, KEY_MAX)]).astype(np.int32)
+
+
+def _dup_queries(rng, d):
+    sp = d[::128].astype(np.int64)
+    q = np.concatenate([rng.integers(-10**6 - 5, d.max(initial=0) // 2 + 5,
+                                     3000),
+                        d[:2048], sp, sp - 1,
+                        [KEY_MIN, KEY_MAX - 2, KEY_MAX - 1, KEY_MAX]])
+    return q.clip(KEY_MIN, KEY_MAX).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_real,n_pad", [
+    (1000, 24), (1025, 0), (38_400, 0), (22_430, (1 << 17) - 22_430),
+    (5, 1 << 17), ((1 << 17) + 5, 0), ((1 << 19) + 1, 0),
+])
+def test_search_positions_duplicate_runs(card, n_real, n_pad):
+    """Runs of equal keys, inside a window, across window boundaries and
+    as long KEY_MAX padding: the rank counts every copy <= q, exactly as
+    the twin and ``torch.searchsorted(right=True)`` do; one launch."""
+    rng = np.random.default_rng(n_real * 3 + n_pad)
+    d = _dup_directory(rng, n_real, n_pad)
+    dk, qk = _t(d, card), _t(_dup_queries(rng, d), card)
+    n0 = _build.launch_counts["search_positions"]
+    got = search_positions(dk, qk)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["search_positions"] == n0 + 1
+    _eq(got, search_positions_ref(dk, qk))
+    _eq(got, (torch.searchsorted(dk, qk, right=True).int() - 1).clamp_min(0))
+
+
+@pytest.mark.parametrize("n_real,n_pad", [
+    (1023, 0), (38_401, 0), (22_430, (1 << 17) - 22_430),
+])
+def test_search_positions_unaligned_directory(card, n_real, n_pad):
+    """A directory view 4 bytes off a 16-byte boundary takes the 4-byte
+    variant (``_build.vec_for`` gives 1): the same answers as the aligned
+    copy, the twin and ``torch.searchsorted``; one launch each."""
+    rng = np.random.default_rng(n_real + 7)
+    d = _dup_directory(rng, n_real, n_pad)
+    qk = _t(_dup_queries(rng, d), card)
+    buf = torch.zeros(len(d) + 1, dtype=torch.int32, device=card)
+    buf[1:] = _t(d, card)
+    view = buf[1:]
+    assert view.data_ptr() % 16 == 4
+    assert _build.vec_for(4, view.data_ptr()) == 1
+    n0 = _build.launch_counts["search_positions"]
+    got = search_positions(view, qk)
+    aligned = search_positions(_t(d, card), qk)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["search_positions"] == n0 + 2
+    _eq(got, aligned)
+    _eq(got, search_positions_ref(view, qk))
+    _eq(got, (torch.searchsorted(view, qk, right=True).int() - 1)
+        .clamp_min(0))
 
 
 def _drive(cfg, dev):

@@ -449,6 +449,43 @@ def test_search_positions_twin_matches_rank_right_of_store():
         got.numpy(), np.maximum(np.searchsorted(dir_keys, q, "right") - 1, 0))
 
 
+@pytest.mark.parametrize("n_real,n_pad,dups", [
+    (22_430, (1 << 17) - 22_430, False),  # the main store's, at max_leaves
+    (22_430, (1 << 17) - 22_430, True),
+    (1 << 17, 0, True),
+    ((1 << 17) - 1, 1, False),
+    (38_401, 0, True),
+    (1025, 3000, True),
+    (1024, 0, False),
+    (1, 0, False),
+    (0, 64, False),
+    (0, 0, False),
+])
+def test_search_positions_twin_matches_jax_ref_at_max_leaves(n_real, n_pad,
+                                                            dups):
+    """The flat-directory rank at the TPU kernel's own input size: a
+    sorted directory of ``n_real`` keys padded with KEY_MAX (runs of equal
+    keys where ``dups``), P = 4096 queries that hit every entry dir[128 k]
+    and the key just below it, and KEY_MIN, KEY_MAX - 2, KEY_MAX - 1 and
+    KEY_MAX.  The port's twin and its CPU wrapper equal the JAX package's
+    ``search_positions_ref`` (``jnp.searchsorted``, not the Pallas
+    interpreter): exact."""
+    rng = np.random.default_rng(n_real * 5 + n_pad + dups)
+    if dups:
+        d = np.sort(rng.integers(-10**6, max(n_real // 8, 1), n_real))
+    else:
+        d = np.sort(rng.choice(10**7, n_real, replace=False))
+    d = np.concatenate([d, np.full(n_pad, KEY_MAX)]).astype(np.int32)
+    sp = d[::128].astype(np.int64)
+    edges = np.concatenate([[-(2**31), KEY_MAX - 2, KEY_MAX - 1, KEY_MAX],
+                            sp, sp - 1]).clip(-(2**31), KEY_MAX)
+    q = rng.integers(-10**6 - 5, 10**7 + 5, 4096).astype(np.int32)
+    q[:min(len(edges), 4096)] = edges[:4096]
+    want = np.asarray(j_search_positions_ref(jnp.asarray(d), jnp.asarray(q)))
+    _eq(search_positions_ref(_t(d), _t(q)), want)
+    _eq(search_positions(_t(d), _t(q)), want)
+
+
 def test_wrappers_count_no_launch_on_cpu():
     """A CPU tensor takes the plain twin: no kernel launch is counted."""
     before = dict(_build.launch_counts)
