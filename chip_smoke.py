@@ -36,8 +36,25 @@ Phases, one line each (any failure exits non-zero):
   4b. profile two more fig9b plans under ``torch.profiler`` (device
                activity): wall time, device busy time, idle share,
                kernels and device-to-host copies per plan, top kernels
+  4c. sharded  ``Uruv.sharded`` over ``make_host_mesh(4)``: four stores of
+               the main configuration stacked on the card, the universe
+               range-partitioned (``ShardedConfig(key_hi=2,000,000)``);
+               the main path's workload (``--prefill`` keys in routed
+               plans of 4096, ``--plans`` fig9b plans, the held-snapshot
+               read), one plan whose keys all fall on shard 0 (the routing
+               budget overflows: the replicated fallback) and
+               ``make_ops``' ``range_q`` on 8 intervals; every answer
+               against the oracle, ``check_invariants`` on each shard,
+               the store kernels' launches, then a local ``Uruv`` fed the
+               same seeded plans must give equal values, timestamps,
+               pages and clock; prefill s, fig9b ops/s beside the local
+               store's, routed and replicated passes, keys per shard,
+               peak memory; two more fig9b plans profiled
+               (``sharded-profile``)
   5. cpu==cuda the same seeded plans at ``--reduced`` keys on ``cuda`` and
-               on ``device="cpu"``: the two stores must be bit-equal
+               on ``device="cpu"``: the two stores must be bit-equal;
+               then the same for a 4-shard ``Uruv.sharded`` store
+               (``sharded-cpu==cuda``, every stacked array)
   6. lifecycle a self-sizing ``Uruv(leaf_cap=16, max_leaves=32,
                max_versions=4096)`` on cuda taken far past its pools with
                inserts, deletes and a held snapshot: every answer against
@@ -85,7 +102,8 @@ Phases, one line each (any failure exits non-zero):
                read it instead), and the attention rows add
                ``library_device_ms``, the same reading for the
                ``scaled_dot_product_attention`` call.
-               Each row's ``launches`` is the main path's count.  The main
+               Each row's ``launches`` is the main path's count,
+               ``sharded_launches`` the sharded phase's.  The main
                path runs the ``leaf_slots`` kernel only in place, through
                the fused entry ``leaf_slots_at`` (the rank with each hit's
                chain walked in its launch): row ``leaf_slots_read``, at the
@@ -190,6 +208,7 @@ L2_BYTES = 50 * 2**20         # H100 SXM L2 cache
 HBM_CHASE_MIB = 256           # latency probe cycles: five times the L2 ...
 L2_CHASE_MIB = 4              # ... and far past L1, well inside the L2
 SCAN_PAGES = 8                # main path: scan_page calls under the snapshot
+SHARDS = 4                    # phase sharded: key-range shards on the card
 DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
 WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
 WORKER_MIXED = 4              # ... and 4 fig9b plans after their prefill
@@ -718,16 +737,33 @@ def verify_plan(oracle, api, plan, res, tag: str) -> None:
               f"{tag}: RANGE page at {pos} differs")
 
 
+def prefill_width(n_done: int, ramp: bool) -> int:
+    """The next prefill plan's width: WIDTH, or with ``ramp`` a third of
+    the keys already in, in multiples of 4 from 64 up to WIDTH.  The
+    sharded path has no halving slow path (a plan that sends more than
+    ``leaf_cap`` new keys to one leaf is rejected, as in the JAX package),
+    so an empty sharded store takes about 16 new keys a leaf at first."""
+    return min(WIDTH, max(64, n_done // 3) // 4 * 4) if ramp else WIDTH
+
+
 def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
-              verify: bool, tag: str):
-    """Prefill ``n_keys`` distinct keys, then ``n_plans`` mixed plans with
-    a held snapshot in the middle.  Returns timing facts."""
+              verify: bool, tag: str, trace=None, ramp: bool = False):
+    """Prefill ``n_keys`` distinct keys (plans of WIDTH, ramped up to it
+    with ``ramp``: :func:`prefill_width`), then ``n_plans`` mixed plans
+    with a held snapshot in the middle.  Returns timing facts.
+    ``trace``, a list, receives every plan's values, timestamps and pages,
+    the held snapshot's range pages and lookups, and the final clock: two
+    stores fed the same seeded plans must give equal traces."""
     keys = rng.choice(UNIVERSE, n_keys, replace=False).astype(np.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(0, n_keys, WIDTH):
-        k = keys[i:i + WIDTH]
+    i = 0
+    while i < n_keys:
+        k = keys[i:i + prefill_width(i, ramp)]
+        i += len(k)
         res = db.apply(api.OpBatch.inserts(k, k % 1000 + 1))
+        if trace is not None:
+            trace += [res.values, res.timestamps]
         if verify:
             check(np.all(res.values == api.NOT_FOUND),
                   f"{tag}: prefill insert saw a previous value")
@@ -748,6 +784,8 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
         res = db.apply(plan)
         apply_s += time.perf_counter() - t0
         n_ops += len(plan)
+        if trace is not None:
+            trace += [res.values, res.timestamps, res.pages()]
         if not verify:
             continue
         check(np.array_equal(res.timestamps, base + np.arange(len(plan))),
@@ -763,6 +801,8 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
         scans = [db.scan_page(int(a), int(a) + RANGE_SIZE - 1, held)
                  for a in lo[:SCAN_PAGES]]
         db.release_snapshot(held)
+        if trace is not None:
+            trace += [pages, got]
         if verify:
             for a, pg in zip(lo.tolist(), pages):
                 exp = oracle.range(a, a + RANGE_SIZE - 1, held_val)
@@ -776,6 +816,8 @@ def run_plans(db, api, rng, oracle, n_keys: int, n_plans: int, *,
                 check(np.array_equal(items, exp[:len(items)])
                       and (bool(page.truncated[0]) or len(items) == len(exp)),
                       f"{tag}: held-snapshot scan_page at {a}")
+    if trace is not None:
+        trace.append(db.ts)
     return dict(prefill_s=prefill_s, apply_s=apply_s, n_ops=n_ops)
 
 
@@ -853,11 +895,13 @@ def main_path(args, api, rng) -> dict:
 # phase 4b: where a mixed plan's time goes (torch.profiler trace)
 # ---------------------------------------------------------------------------
 
-def profile_plans(db, api, rng, n_plans: int = 2) -> dict:
-    """Trace ``n_plans`` more fig9b plans on the main path's store and
-    read the trace: wall time, device busy time (union of kernel
-    intervals), kernel launches, device-to-host copies (host syncs) and
-    the kernels that take the most device time."""
+def profile_plans(db, api, rng, n_plans: int = 2,
+                  tag: str = "profile") -> dict:
+    """Trace ``n_plans`` more fig9b plans on ``db`` (the main path's
+    store, or the sharded phase's) and read the trace: wall time, device
+    busy time (union of kernel intervals), kernel launches,
+    device-to-host copies (host syncs) and the kernels that take the most
+    device time."""
     plans = [mixed_plan(rng, api) for _ in range(n_plans)]
     torch.cuda.synchronize()
     # device activity only: host-side op recording would slow the host
@@ -869,7 +913,8 @@ def profile_plans(db, api, rng, n_plans: int = 2) -> dict:
             db.apply(plan)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    path = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
+    path = (Path(__file__).resolve().parent / "build"
+            / f"chip_smoke_{tag}_trace.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -887,12 +932,12 @@ def profile_plans(db, api, rng, n_plans: int = 2) -> dict:
     for e in kern:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    check(kern, "profile: the trace holds no kernel on the card")
+    check(kern, f"{tag}: the trace holds no kernel on the card")
     out = dict(plans=n_plans, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                idle_share=1 - busy_us / 1e3 / wall_ms,
                kernels_per_plan=len(kern) / n_plans,
                d2h_copies_per_plan=len(d2h) / n_plans)
-    say("profile", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+    say(tag, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                       for k, v in out.items()},
         top_kernels_ms=json.dumps({n[:40]: round(us / 1e3, 4)
                                    for n, us in top}).replace(" ", ""))
@@ -903,28 +948,182 @@ def profile_plans(db, api, rng, n_plans: int = 2) -> dict:
 # phase 5: the same plans on cuda and on the CPU -> bit-equal stores
 # ---------------------------------------------------------------------------
 
-def cpu_equals_cuda(args, api) -> None:
+def cpu_equals_cuda(args, api, make=None, tag: str = "cpu==cuda",
+                    seed: int = 1, ramp: bool = False) -> None:
+    """``make(device)`` (default: a local ``Uruv`` of ``REDUCED_CFG``)
+    on ``cuda`` and on the CPU, fed the same seeded plans: bit-equal
+    stores, live-key counts and counters."""
     from repro_torch.core import store as S
 
+    if make is None:
+        def make(dev):
+            return api.Uruv(api.UruvConfig(**REDUCED_CFG), device=dev)
     out = {}
     for dev in ("cuda", "cpu"):
-        rng = np.random.default_rng(args.seed + 1)
-        db = api.Uruv(api.UruvConfig(**REDUCED_CFG), device=dev)
+        rng = np.random.default_rng(args.seed + seed)
+        db = make(dev)
         oracle = Oracle(api.NOT_FOUND, api.TOMBSTONE)
         run_plans(db, api, rng, oracle, args.reduced, 4, verify=False,
-                  tag=dev)
+                  tag=dev, ramp=ramp)
         n_live = db.compact()
         db.reindex()
         out[dev] = (S.to_numpy(db.store), n_live, db.stats)
     a, b = out["cuda"][0], out["cpu"][0]
-    check(sorted(a) == sorted(b), "cpu/cuda store fields differ")
+    check(sorted(a) == sorted(b), f"{tag}: store fields differ")
     for name in a:
         check(a[name].dtype == b[name].dtype
               and np.array_equal(a[name], b[name]),
-              f"cpu/cuda store differ in {name}")
-    check(out["cuda"][1:] == out["cpu"][1:], "cpu/cuda stats differ")
-    say("cpu==cuda", keys=args.reduced, fields=len(a),
+              f"{tag}: stores differ in {name}")
+    check(out["cuda"][1:] == out["cpu"][1:], f"{tag}: stats differ")
+    say(tag, keys=args.reduced, fields=len(a), shape=a["leaf_keys"].shape,
         live_keys=out["cuda"][1], result="bit-equal")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the key-range-sharded store, 4 shards on the card
+# ---------------------------------------------------------------------------
+
+def _same_trace(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+        for x, y in zip(a, b))
+
+
+def _count_calls(fns: dict, counter: dict, kind: str) -> dict:
+    """``fns`` with every callable wrapped to count its calls."""
+    def wrap(fn):
+        def run(*a, **kw):
+            counter[kind] += 1
+            return fn(*a, **kw)
+        return run
+    return {k: wrap(f) for k, f in fns.items()}
+
+
+def sharded_phase(args, api) -> dict:
+    """``Uruv.sharded`` over ``make_host_mesh(SHARDS)``: SHARDS stores of
+    the main configuration stacked on the card, keys range-partitioned
+    over the 2,000,000-key universe.  The main path's workload (prefill in
+    routed plans of 4096, fig9b plans, a held-snapshot read), a plan whose
+    keys all fall on shard 0 (the routing budget overflows: the
+    replicated fallback) and ``make_ops``' ``range_q`` (the paper's
+    single-interval scan on every shard: the standalone
+    ``versioned_read``), every answer against the oracle; the launch
+    counts of that run; then a local ``Uruv`` fed the same seeded plans
+    must give the same values, timestamps, pages and clock.  The phase
+    draws from a generator of its own, so the phases after it see the
+    same data with and without it."""
+    from repro_torch.core import sharded as SH, store as S
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base = api.UruvConfig(**MAIN_CFG)
+    cfg = api.ShardedConfig(base=base, key_lo=0, key_hi=UNIVERSE)
+    mesh = make_host_mesh(SHARDS)
+    rng = np.random.default_rng(args.seed + 7)
+    seed = int(rng.integers(1 << 31))
+    op = dict(insert=api.OP_INSERT, delete=api.OP_DELETE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    db = api.Uruv.sharded(cfg, mesh)
+    pool_mib = store_mib(db.store)
+    ex = db.executor
+    passes = {"routed": 0, "replicated": 0}
+    ex._routed_fns = _count_calls(ex._routed_fns, passes, "routed")
+    ex._apply_fns = _count_calls(ex._apply_fns, passes, "replicated")
+    oracle = Oracle(api.NOT_FOUND, api.TOMBSTONE)
+    trace = []
+    _build.launch_counts.clear()
+    facts = run_plans(db, api, np.random.default_rng(seed), oracle,
+                      args.prefill, args.plans, verify=True, tag="sharded",
+                      trace=trace, ramp=True)
+    routed_plans = dict(passes)
+    # one plan of fig9b's CRUD mix whose keys all fall on shard 0: each
+    # source slice owes shard 0 all its WIDTH / SHARDS ops, twice the
+    # routing budget
+    span = cfg.span(SHARDS)
+    r = rng.random(WIDTH)
+    fb_codes = np.where(r < 0.9, api.OP_SEARCH, np.where(
+        r < 0.95, api.OP_INSERT, api.OP_DELETE)).astype(np.int32)
+    fb_keys = rng.integers(0, span, WIDTH).astype(np.int32)
+    fb_vals = rng.integers(1, 1 << 20, WIDTH).astype(np.int32)
+    fallback = api.OpBatch(fb_codes, fb_keys, fb_vals)
+    before = dict(passes, device=db.stats["device_passes"])
+    res = db.apply(fallback)
+    check(np.array_equal(res.values,
+                         oracle.crud(fb_codes, fb_keys, fb_vals, op)),
+          "sharded: the forced fallback's results differ from the oracle")
+    check(passes["routed"] - before["routed"] == 1
+          and passes["replicated"] - before["replicated"] == 1
+          and db.stats["device_passes"] - before["device"] == 2,
+          "sharded: the forced plan did not take the routed pass and then "
+          "the replicated fallback")
+    trace += [res.values, res.timestamps, db.ts]
+    # the paper's single-interval RANGEQUERY on every shard (range_q)
+    _, _, range_q = SH.make_ops(cfg, mesh)
+    lo = rng.integers(0, UNIVERSE - RANGE_SIZE, SCAN_PAGES).astype(np.int32)
+    with db.snapshot() as snap:
+        for a in lo.tolist():
+            keys, vals, cnt, trunc = (x.cpu().numpy() for x in range_q(
+                db.store, a, a + RANGE_SIZE - 1, snap))
+            exp = oracle.range(a, a + RANGE_SIZE - 1)
+            for s in range(SHARDS):
+                mine = exp[(exp[:, 0] // span).clip(0, SHARDS - 1) == s] \
+                    if len(exp) else exp
+                got = np.stack([keys[s, :cnt[s]], vals[s, :cnt[s]]], 1)
+                check(np.array_equal(got, mine[:len(got)])
+                      and (bool(trunc[s]) or len(got) == len(mine)),
+                      f"sharded: range_q at {a}, shard {s}")
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    for name in STORE_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the sharded path")
+    for st in S.shard_views(db.store):
+        S.check_invariants(st)
+    live = np.asarray(db.live_items(), np.int64).reshape(-1, 2)
+    ks = np.nonzero(oracle.val != api.NOT_FOUND)[0]
+    check(np.array_equal(live, np.stack([ks, oracle.val[ks]], 1)),
+          "sharded: live_items differs from the oracle")
+    per_shard = np.bincount(np.minimum(ks // span, SHARDS - 1),
+                            minlength=SHARDS)
+    stats = db.stats
+
+    # the local store, fed the same seeded plans
+    local = api.Uruv(base)
+    local_trace = []
+    local_facts = run_plans(local, api, np.random.default_rng(seed),
+                            Oracle(api.NOT_FOUND, api.TOMBSTONE),
+                            args.prefill, args.plans, verify=False,
+                            tag="sharded-local", trace=local_trace,
+                            ramp=True)
+    res = local.apply(fallback)
+    local_trace += [res.values, res.timestamps, local.ts]
+    check(_same_trace(trace, local_trace),
+          "sharded: results, timestamps, pages or clock differ from the "
+          "local store's")
+    del local
+    ops_per_s = [f["n_ops"] / max(f["apply_s"], 1e-9)
+                 for f in (facts, local_facts)]
+    say("sharded", shards=SHARDS, keys=args.prefill, plans=args.plans,
+        prefill_s=f"{facts['prefill_s']:.3f}",
+        mixed_ops_per_s=f"{ops_per_s[0]:.1f}",
+        local_prefill_s=f"{local_facts['prefill_s']:.3f}",
+        local_mixed_ops_per_s=f"{ops_per_s[1]:.1f}",
+        routed_passes=routed_plans["routed"],
+        replicated_passes=routed_plans["replicated"],
+        device_passes=stats["device_passes"],
+        slow_path_rounds=stats["slow_path_rounds"], grows=stats["grows"],
+        maintain_passes=stats["maintain_passes"], fallback="exact",
+        keys_per_shard=",".join(map(str, per_shard.tolist())),
+        n_leaves=",".join(str(int(x)) for x in db.store.n_leaves),
+        pools_mib=f"{pool_mib:.1f}",
+        max_memory_allocated_mib=f"{peak_mib:.1f}",
+        local="equal", launches=json.dumps(counts, sort_keys=True)
+        .replace(" ", ""))
+    prof = profile_plans(db, api, rng, tag="sharded-profile")
+    return dict(counts=counts, facts=facts, local_facts=local_facts,
+                profile=prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1495,6 +1694,7 @@ def serve_phase(args, rng) -> dict:
     answer is held against a host dict replay of the engine's plans."""
     import repro_torch.api as api
     from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch import serve
     from repro_torch.models import common, transformer
 
@@ -2077,6 +2277,7 @@ def main() -> int:
         return durable_worker(args)
     import repro_torch.api as api
     from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
 
     # fp32 products in full fp32 (the reference's precision), no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2092,7 +2293,14 @@ def main() -> int:
                       torch.device("cuda"))
     main_res = main_path(args, api, rng)
     profile_plans(main_res.pop("db"), api, rng)
+    sharded_res = sharded_phase(args, api)
     cpu_equals_cuda(args, api)
+    cpu_equals_cuda(args, api, tag="sharded-cpu==cuda", seed=5, ramp=True,
+                    make=lambda dev: api.Uruv.sharded(
+                        api.ShardedConfig(
+                            base=api.UruvConfig(**REDUCED_CFG),
+                            key_hi=UNIVERSE),
+                        make_host_mesh(SHARDS, device=dev)))
     lifecycle_phase(api, rng)
     serve_res = serve_phase(args, rng)
     model_cpu_equals_cuda(args)
@@ -2102,6 +2310,8 @@ def main() -> int:
     lat = latencies(torch.device("cuda"))
     rows = (kernel_report(main_res, lat["hbm"]) + attention_report(serve_res)
             + search_positions_report(main_res, api, rng, lat["l2"]))
+    for row in rows:
+        row["sharded_launches"] = sharded_res["counts"].get(row["name"], 0)
     locate_report(main_res)
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))

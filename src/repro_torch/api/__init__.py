@@ -12,7 +12,9 @@
     ``Uruv.recover``; see ``repro_torch.durability``).  It runs on
     ``cuda`` unless given ``device="cpu"``.
   * :class:`PendingPlan` — a dispatched, unconfirmed plan.
-  * :class:`LocalExecutor` — the single-device execution backend.
+  * :class:`LocalExecutor` / :class:`ShardedExecutor` — the execution
+    backends: one store, or a key-range-sharded stacked store
+    (``Uruv.sharded(ShardedConfig(...), make_host_mesh(n))``).
   * :class:`LifecyclePolicy` — the store lifecycle; the default is
     self-sizing (pools grow, maintenance interleaves), and
     :data:`FIXED_FOOTPRINT` keeps the configured pools with
@@ -24,11 +26,13 @@ from repro_torch.core.ref import (
     KEY_DOMAIN_HI, KEY_MAX, NOT_FOUND, TOMBSTONE,
     OP_DELETE, OP_INSERT, OP_NOP, OP_RANGE, OP_SEARCH,
 )
+from repro_torch.core.sharded import ShardedConfig
 from repro_torch.core.store import UruvConfig
 
 from repro_torch.api.client import Uruv
 from repro_torch.api.executors import (
     FIXED_FOOTPRINT, LifecyclePolicy, LocalExecutor, RangeOptions,
+    ShardedExecutor,
 )
 from repro_torch.api.futures import PendingPlan
 from repro_torch.api.opbatch import (
@@ -53,6 +57,8 @@ __all__ = [
     "RangeOptions",
     "RangePage",
     "Result",
+    "ShardedConfig",
+    "ShardedExecutor",
     "TOMBSTONE",
     "Uruv",
     "UruvConfig",

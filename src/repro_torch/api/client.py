@@ -34,7 +34,7 @@ import numpy as np
 from repro_torch.core import store as _store
 from repro_torch.core.ref import KEY_MAX, OP_RANGE
 from repro_torch.api.executors import (
-    LifecyclePolicy, LocalExecutor, RangeOptions,
+    LifecyclePolicy, LocalExecutor, RangeOptions, ShardedExecutor,
 )
 from repro_torch.api.futures import PendingPlan
 from repro_torch.api.opbatch import (
@@ -43,7 +43,10 @@ from repro_torch.api.opbatch import (
 
 
 class Uruv:
-    """Stateful client over an immutable store + a single-device executor.
+    """Stateful client over an immutable store + a pluggable executor:
+    one store (the default) or, through :meth:`sharded`, a
+    key-range-sharded stacked store — every verb below then runs without
+    the caller branching on topology.
 
     Runs on ``device`` (default ``cuda``; raises when CUDA is absent,
     ``device="cpu"`` gives the plain PyTorch path).  The store is
@@ -59,11 +62,13 @@ class Uruv:
     def __init__(self, config: Optional[_store.UruvConfig] = None, *,
                  device=None, store=None,
                  policy: Optional[LifecyclePolicy] = None,
-                 durable_dir=None, group_commit: int = 1):
-        if store is not None:
-            config = config or store.cfg
-            device = store.device if device is None else device
-        self.executor = LocalExecutor(config, device=device, policy=policy)
+                 durable_dir=None, group_commit: int = 1, executor=None):
+        if executor is None:
+            if store is not None:
+                config = config or store.cfg
+                device = store.device if device is None else device
+            executor = LocalExecutor(config, device=device, policy=policy)
+        self.executor = executor
         self._store = store if store is not None else self.executor.create()
         self.recovery = None       # set by Uruv.recover()
         if durable_dir is not None:
@@ -79,6 +84,18 @@ class Uruv:
             self._attach_durability(dur)
 
     # ----------------------------------------------------------- constructors
+    @classmethod
+    def sharded(cls, config, mesh, *, route_factor: int = 2,
+                routed: bool = True, store=None,
+                policy: Optional[LifecyclePolicy] = None) -> "Uruv":
+        """A client over a key-range-sharded store: ``config`` is a
+        ``repro_torch.core.sharded.ShardedConfig``, the shards are
+        ``mesh``'s data axis, stacked on ``mesh.device``
+        (``repro_torch.launch.mesh.make_host_mesh``)."""
+        return cls(executor=ShardedExecutor(
+            config, mesh, route_factor=route_factor, routed=routed,
+            policy=policy), store=store)
+
     @classmethod
     def from_store(cls, store, *,
                    policy: Optional[LifecyclePolicy] = None) -> "Uruv":
@@ -147,10 +164,12 @@ class Uruv:
         """Executor counters (``device_passes`` / ``slow_path_rounds`` /
         ``compactions`` / ``grows`` / ``maintain_passes`` /
         ``leaves_reclaimed``) plus the store's index counters
-        ``index_delta_passes`` and ``index_propagations``."""
+        ``index_delta_passes`` and ``index_propagations`` (a sharded
+        store sums its shards)."""
         s = dict(self.executor.stats)
-        s["index_delta_passes"] = int(self._store.index.stat_delta_passes)
-        s["index_propagations"] = int(self._store.index.stat_propagations)
+        idx = self._store.index
+        s["index_delta_passes"] = int(idx.stat_delta_passes.sum())
+        s["index_propagations"] = int(idx.stat_propagations.sum())
         return s
 
     @property
@@ -167,7 +186,10 @@ class Uruv:
     @property
     def active_snapshots(self) -> int:
         """Registered-and-unreleased snapshots in the version tracker."""
-        return int(self._store.trk_active.sum())
+        act = self._store.trk_active
+        if act.dim() == 2:       # sharded: the tracker ring is replicated
+            act = act[0]
+        return int(act.sum())
 
     # ----------------------------------------------------------------- write
     def apply(self, batch: OpBatch, *, light_path: bool = True,
@@ -373,11 +395,17 @@ class Uruv:
     # ------------------------------------------------------------ inspection
     def live_items(self) -> List[Tuple[int, int]]:
         """All (key, latest live value) pairs in key order (host-side)."""
-        return _store.live_items(self._store)
+        store = self._store
+        if _store.is_stacked(store):           # sharded: walk every shard
+            return sorted(kv for st in _store.shard_views(store)
+                          for kv in _store.live_items(st))
+        return _store.live_items(store)
 
     def __len__(self) -> int:
         return len(self.live_items())
 
     def __repr__(self) -> str:
-        return (f"Uruv(device={self.executor.device}, ts={self.ts}, "
-                f"leaf_cap={self.config.leaf_cap})")
+        cfg = getattr(self.config, "base", self.config)
+        return (f"Uruv(executor={type(self.executor).__name__}, "
+                f"device={self.executor.device}, ts={self.ts}, "
+                f"leaf_cap={cfg.leaf_cap})")

@@ -15,6 +15,10 @@ Sec 3 and 14):
   * GC      — superseded steps are deleted from the catalogue and their
     directories removed; a delta's base chain always outlives it.
 
+A stacked (sharded) store saves with ``uruv_shards`` = its shard count
+and ``uruv_ts`` = its clock, every array with its leading shard axis,
+and restores stacked, in the JAX package's format both ways.
+
 ``save_store_delta`` writes only what changed since the previous save in
 this manager: per array ``same`` (nothing written), ``rows`` (changed
 rows by index; the version pool takes the allocator TAIL through
@@ -50,7 +54,9 @@ from repro_torch.api import KEY_DOMAIN_HI, Uruv, UruvConfig
 from repro_torch.core.lifecycle import (
     PoolWatermarks, pool_watermarks, version_tail_start,
 )
-from repro_torch.core.store import from_numpy, resolve_device, to_numpy
+from repro_torch.core.store import (
+    from_numpy, is_stacked, resolve_device, to_numpy,
+)
 from repro_torch.distributed.fault import crash_point
 
 
@@ -214,11 +220,13 @@ class CheckpointManager:
     @staticmethod
     def _store_extra(store) -> Dict[str, Any]:
         return {"uruv_config": dataclasses.asdict(store.cfg),
-                "uruv_shards": 0, "uruv_ts": int(store.ts)}
+                "uruv_shards": store.ts.shape[0] if is_stacked(store) else 0,
+                "uruv_ts": int(store.ts.max())}
 
     def save_store(self, store, step: int, *, compactions: int = 0) -> None:
-        """Checkpoint a port store in full, its LIVE capacities recorded
-        in the manifest; (re)bases the delta chain on this save."""
+        """Checkpoint a port store (local or stacked) in full, its LIVE
+        capacities recorded in the manifest; (re)bases the delta chain on
+        this save."""
         flat = _flatten(store)
         self._delta_base = (step, dict(flat))
         self._delta_marks = pool_watermarks(store, compactions=compactions)
@@ -246,7 +254,7 @@ class CheckpointManager:
         tail_start = version_tail_start(
             self._delta_marks, store, compactions=compactions) \
             if self._delta_marks is not None else None
-        n_vers = int(host[".n_vers"])
+        n_vers = int(host[".n_vers"].max())
 
         entries: List[Tuple[Dict[str, Any], Optional[Any]]] = []
         counts = {"same": 0, "rows": 0, "full": 0}
@@ -302,7 +310,8 @@ class CheckpointManager:
     def restore_store(self, step: Optional[int] = None):
         """Rebuild the store saved by :meth:`save_store` (or a
         :meth:`save_store_delta` chain) on the manager's device, at the
-        manifest's recorded ``UruvConfig``.  Returns ``(store, step)``."""
+        manifest's recorded ``UruvConfig``; a stacked store (``uruv_shards``
+        > 0) comes back stacked.  Returns ``(store, step)``."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -312,10 +321,6 @@ class CheckpointManager:
         if "uruv_config" not in manifest:
             raise ValueError(
                 f"checkpoint step {step} was not written by save_store")
-        if manifest.get("uruv_shards"):
-            raise NotImplementedError(
-                "the port restores single-device stores; this checkpoint "
-                "holds a sharded store")
         arrays = {_port_name(k): v
                   for k, v in self._host_leaves(step).items()}
         cfg = UruvConfig(**manifest["uruv_config"])

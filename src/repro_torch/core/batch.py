@@ -44,11 +44,13 @@ class CapacityError(RuntimeError):
         self.n_vers = 0
         self.max_versions = 0
         if store is not None:
-            n_alloc = int(store.n_alloc)
-            self.occupancy = n_alloc / max(int(store.cfg.max_leaves), 1)
-            self.frozen_fraction = (n_alloc - int(store.n_leaves)) / max(
-                n_alloc, 1)
-            self.n_vers = int(store.n_vers)
+            # a stacked (sharded) store sums its shards' leaf pools and
+            # reports its fullest version pool
+            n_alloc = int(store.n_alloc.sum())
+            self.occupancy = n_alloc / max(
+                int(store.cfg.max_leaves) * store.ts.numel(), 1)
+            self.frozen_fraction = LC.dead_fraction(store)
+            self.n_vers = int(store.n_vers.max())
             self.max_versions = int(store.cfg.max_versions)
             message = (
                 f"{message} [oflow={self.oflow:#x} "
@@ -170,6 +172,10 @@ def apply_mixed(
     max_rounds: int = 8,
     stats: Optional[Dict[str, int]] = None,
     policy: Optional[LC.LifecyclePolicy] = None,
+    crud_fn=None,
+    range_all_fn=None,
+    get_ts_fn=None,
+    set_ts_fn=None,
 ) -> Tuple[S.UruvStore, np.ndarray, List[Tuple[int, List[Tuple[int, int]]]]]:
     """Array-level mixed announce sequencer — the host half of the ADT.
 
@@ -185,20 +191,45 @@ def apply_mixed(
     range ops one batched ``bulk_range`` pass against the store state
     that precedes it, so a range snapshot resolves every key at chain
     depth 0 whatever later updates the batch holds.
+
+    The four hooks let another topology reuse THIS loop (one copy of the
+    segmentation semantics, as ``bulk_range_all``'s ``page_fn``):
+    ``crud_fn(store, codes, keys, values, op_ts, next_ts)`` applies one
+    CRUD segment (default: the local help-rounds; a custom fn may ignore
+    ``op_ts`` if its passes derive timestamps from the store clock),
+    ``range_all_fn(store, k1, k2, snaps)`` answers one RANGE segment
+    completely, ``get_ts_fn(store)`` reads the global clock and
+    ``set_ts_fn(store, ts)`` restates it after a RANGE segment (range ops
+    take announce slots but their passes do not advance the clock).
     """
     codes = np.asarray(codes, np.int32)
     keys = np.asarray(keys, np.int32)
     vals = np.asarray(values, np.int32)
+    if crud_fn is None:
+        def crud_fn(st, c, k, v, op_ts, next_ts):
+            return _apply_rounds(st, c, k, v, op_ts, next_ts,
+                                 light_path=light_path, stats=stats,
+                                 policy=policy)
+    if range_all_fn is None:
+        def range_all_fn(st, k1, k2, snaps):
+            return bulk_range_all(
+                st, k1, k2, snaps, max_results=max_results,
+                scan_leaves=scan_leaves, max_rounds=max_rounds, stats=stats)
+    if get_ts_fn is None:
+        def get_ts_fn(st):
+            return int(st.ts)
+    if set_ts_fn is None:
+        def set_ts_fn(st, ts):
+            return dataclasses.replace(
+                st, ts=torch.tensor(ts, dtype=torch.int32, device=st.device))
     n = len(codes)
     if n == 0:
         return store, np.zeros(0, np.int64), []
     rmask = codes == OP_RANGE
     if not rmask.any():
-        store, res = _apply_rounds(store, codes, keys, vals, None, None,
-                                   light_path=light_path, stats=stats,
-                                   policy=policy)
-        return store, res.astype(np.int64), []
-    base = int(store.ts)
+        store, res = crud_fn(store, codes, keys, vals, None, None)
+        return store, np.asarray(res).astype(np.int64), []
+    base = get_ts_fn(store)
     op_ts = (base + np.arange(n)).astype(np.int32)
     results = np.full(n, NOT_FOUND, np.int64)
     range_pages: List[Tuple[int, List[Tuple[int, int]]]] = []
@@ -208,21 +239,15 @@ def apply_mixed(
         while j < n and bool(rmask[j]) == bool(rmask[i]):
             j += 1
         if rmask[i]:
-            pages = bulk_range_all(
-                store, keys[i:j], vals[i:j], op_ts[i:j],
-                max_results=max_results, scan_leaves=scan_leaves,
-                max_rounds=max_rounds, stats=stats)
+            pages = range_all_fn(store, keys[i:j], vals[i:j], op_ts[i:j])
             results[i:j] = [len(p) for p in pages]
             range_pages.extend(zip(range(i, j), pages))
-            # range passes do not advance the clock: restate it
-            store = dataclasses.replace(
-                store, ts=torch.tensor(base + j, dtype=torch.int32,
-                                       device=store.device))
+            # CRUD passes advance the clock themselves (next_ts, or the
+            # replicated counter); range segments must restate it
+            store = set_ts_fn(store, base + j)
         else:
-            store, res = _apply_rounds(store, codes[i:j], keys[i:j],
-                                       vals[i:j], op_ts[i:j], base + j,
-                                       light_path=light_path, stats=stats,
-                                       policy=policy)
+            store, res = crud_fn(store, codes[i:j], keys[i:j], vals[i:j],
+                                 op_ts[i:j], base + j)
             results[i:j] = res
         i = j
     return store, results, range_pages
@@ -248,13 +273,26 @@ def bulk_range_all(
     scan_leaves: int = 16,
     max_rounds: int = 8,
     stats: Optional[Dict[str, int]] = None,
+    page_fn=None,
 ) -> List[List[Tuple[int, int]]]:
     """Answer Q range queries COMPLETELY; returns per-query (key, value)
     lists.  One ``bulk_range`` pass answers all Q intervals; only queries
     still truncated re-enter the next pass from their exact ``resume_k1``,
     the active set compacted to power-of-two widths.  Read-only:
     ``snap_ts`` must already be registered if isolation across later
-    updates is required."""
+    updates is required.
+
+    ``page_fn(store, k1[W], k2[W], snap[W]) -> (keys, vals, count,
+    truncated, resume_k1)`` replaces the bounded pass itself (the sharded
+    executor supplies its merged pass); the pagination loop is shared
+    either way, so the topologies cannot drift."""
+    if page_fn is None:
+        def page_fn(st, lo_p, hi_p, sn_p):
+            _bump(stats, "device_passes")
+            return S.bulk_range(st, lo_p, hi_p, sn_p,
+                                max_results=max_results,
+                                scan_leaves=scan_leaves,
+                                max_rounds=max_rounds)
     k1 = np.asarray(k1s, np.int32).reshape(-1)
     k2 = np.asarray(k2s, np.int32).reshape(-1)
     Q = len(k1)
@@ -265,14 +303,10 @@ def bulk_range_all(
     for _ in range(MAX_SLOWPATH_ROUNDS * 64):
         W = max(1, 1 << int(len(idx) - 1).bit_length())
         pad = W - len(idx)
-        _bump(stats, "device_passes")
-        page = S.bulk_range(
-            store,
-            np.concatenate([lo, np.full(pad, _DONE_LO, np.int32)]),
-            np.concatenate([hi, np.full(pad, _DONE_HI, np.int32)]),
-            np.concatenate([sn, np.zeros(pad, np.int32)]),
-            max_results=max_results, scan_leaves=scan_leaves,
-            max_rounds=max_rounds)
+        page = page_fn(store,
+                       np.concatenate([lo, np.full(pad, _DONE_LO, np.int32)]),
+                       np.concatenate([hi, np.full(pad, _DONE_HI, np.int32)]),
+                       np.concatenate([sn, np.zeros(pad, np.int32)]))
         keys, vals, cnt, trunc, resume = (t.cpu().numpy() for t in page)
         trunc = trunc[: len(idx)]
         for a, q in enumerate(idx):

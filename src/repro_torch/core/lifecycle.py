@@ -17,7 +17,12 @@ A port of the JAX package's ``repro.core.lifecycle`` (DESIGN.md Sec 10):
     and interleave maintenance on a frozen-fraction trigger.
 
 Every entry point returns a new store and writes nothing into its input
-(older stores stay valid snapshots).  Where the reference scatters with
+(older stores stay valid snapshots).  A stacked store (every array with
+a leading [n_shards] axis, ``repro_torch.core.sharded``) is handled
+shard by shard as the JAX package's ``vmap`` does: every shard grows and
+maintains in the same call, so shard shapes stay equal, and the
+counters the triggers read are summed (or, for the grow trigger, the
+largest shard's) in one host read.  Where the reference scatters with
 ``mode="drop"``, the port aims the dropped writes at a sink slot
 (``repro_torch.core._ops``).
 """
@@ -87,6 +92,10 @@ def _pad_dim0(x: torch.Tensor, size: int, fill) -> torch.Tensor:
 
 def _grow(store: S.UruvStore, *, new_ml: int, new_mv: int,
           new_mt: int) -> S.UruvStore:
+    if S.is_stacked(store):        # the pools pad behind the shard axis
+        return S.stack_shards([
+            _grow(v, new_ml=new_ml, new_mv=new_mv, new_mt=new_mt)
+            for v in S.shard_views(store)])
     cfg = store.cfg
     new_cfg = dataclasses.replace(cfg, max_leaves=new_ml,
                                   max_versions=new_mv, tracker_cap=new_mt)
@@ -320,10 +329,18 @@ def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0
     leaves_reclaimed, pairs_merged)``.  The clock, the version pool and
     the tracker are untouched: every result, reads at any registered
     snapshot included, is the same before and after.  Alternate ``phase``
-    (0/1) between calls to cover both pair parities.
+    (0/1) between calls to cover both pair parities.  A stacked store
+    maintains every shard and returns the summed counts.
     """
-    new, reclaimed, merged = _maintain(store, phase % 2, budget)
-    reclaimed, merged = torch.stack([reclaimed, merged]).tolist()
+    if not S.is_stacked(store):
+        new, reclaimed, merged = _maintain(store, phase % 2, budget)
+        reclaimed, merged = torch.stack([reclaimed, merged]).tolist()
+        return new, reclaimed, merged
+    outs = [_maintain(v, phase % 2, budget) for v in S.shard_views(store)]
+    new = S.stack_shards([o[0] for o in outs], base=store)
+    reclaimed, merged = torch.stack(
+        [torch.stack([o[1] for o in outs]).sum(),
+         torch.stack([o[2] for o in outs]).sum()]).tolist()
     return new, reclaimed, merged
 
 
@@ -349,9 +366,12 @@ class PoolWatermarks:
 
 def pool_watermarks(store: S.UruvStore, *,
                     compactions: int = 0) -> PoolWatermarks:
-    """Read the allocator watermarks (one host transfer)."""
+    """Read the allocator watermarks (one host transfer; a stacked store
+    reports per-shard maxima, and :func:`version_tail_start` then turns
+    the tail fast path off)."""
     ts, n_alloc, n_vers, n_leaves = torch.stack(
-        [store.ts, store.n_alloc, store.n_vers, store.n_leaves]).tolist()
+        [store.ts, store.n_alloc, store.n_vers, store.n_leaves]
+    ).reshape(4, -1).amax(1).tolist()
     return PoolWatermarks(
         ts=ts, n_alloc=n_alloc, n_vers=n_vers, n_leaves=n_leaves,
         max_leaves=int(store.cfg.max_leaves),
@@ -364,8 +384,11 @@ def version_tail_start(before: PoolWatermarks, store: S.UruvStore, *,
                        compactions: int = 0) -> Optional[int]:
     """The first version slot that may differ from the state ``before``
     describes, or ``None`` when tail stability cannot be guaranteed (a
-    compaction ran, or the allocator moved backwards)."""
+    compaction ran, the pool is stacked, or the allocator moved
+    backwards)."""
     if compactions != before.compactions:
+        return None
+    if S.is_stacked(store):            # per-shard allocators
         return None
     if int(store.n_vers) < before.n_vers:
         return None
@@ -378,15 +401,19 @@ def version_tail_start(before: PoolWatermarks, store: S.UruvStore, *,
 
 def leaf_accounting(store: S.UruvStore) -> Dict[str, int]:
     """Bump-allocator accounting: every allocated slot is live (referenced
-    by the index) or dead (frozen): ``n_alloc == live + dead``."""
-    n_alloc = int(store.n_alloc)
-    alloc_mask = torch.arange(store.leaf_frozen.shape[0],
-                              device=store.device) < n_alloc
+    by the index) or dead (frozen): ``n_alloc == live + dead``.  A
+    stacked store sums its shards."""
+    alloc_mask = (torch.arange(store.leaf_frozen.shape[-1],
+                               device=store.device)
+                  < store.n_alloc.unsqueeze(-1))
+    n_alloc, live, dead = torch.stack(
+        [store.n_alloc.sum(), store.n_leaves.sum(),
+         (store.leaf_frozen & alloc_mask).sum()]).tolist()
     return {
         "n_alloc": n_alloc,
-        "live": int(store.n_leaves),
-        "dead": int((store.leaf_frozen & alloc_mask).sum()),
-        "capacity": int(store.cfg.max_leaves),
+        "live": live,
+        "dead": dead,
+        "capacity": int(store.cfg.max_leaves) * store.ts.numel(),
     }
 
 
@@ -399,7 +426,8 @@ def live_key_count(store: S.UruvStore) -> int:
 
 def dead_fraction(store: S.UruvStore) -> float:
     """Dead (unreferenced-but-allocated) fraction of the leaf pool."""
-    n_alloc, live = torch.stack([store.n_alloc, store.n_leaves]).tolist()
+    n_alloc, live = torch.stack([store.n_alloc.sum(),
+                                 store.n_leaves.sum()]).tolist()
     return (n_alloc - live) / max(n_alloc, 1)
 
 
@@ -431,17 +459,20 @@ def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
     """The post-apply interleave: a bounded maintain burst on the
     frozen-fraction trigger first, then proactive growth re-checked on
     the maintained store.  ``grow_fn(store)`` lets an executor wrap its
-    own growth (and count it)."""
+    own growth (and count it).  The maintain trigger reads the pools'
+    sums, the grow trigger the fullest shard's allocator."""
     if not (policy.auto_grow or policy.auto_maintain):
         return store
-    n_alloc, n_leaves = torch.stack([store.n_alloc, store.n_leaves]).tolist()
+    n_alloc, n_leaves, alloc_max = torch.stack(
+        [store.n_alloc.sum(), store.n_leaves.sum(),
+         store.n_alloc.max().long()]).tolist()
     dead = n_alloc - n_leaves
     if (policy.auto_maintain and dead >= policy.min_dead_leaves
             and dead / max(n_alloc, 1) >= policy.frozen_trigger):
         store = run_maintenance(store, policy, stats=stats)
-        n_alloc = int(store.n_alloc)
+        alloc_max = int(store.n_alloc.max())
     if (policy.auto_grow
-            and n_alloc > policy.grow_occupancy * store.cfg.max_leaves):
+            and alloc_max > policy.grow_occupancy * store.cfg.max_leaves):
         if grow_fn is None:
             if stats is not None:
                 stats["grows"] = stats.get("grows", 0) + 1
@@ -468,26 +499,28 @@ def relieve_pressure(store: S.UruvStore, reason: int, width: int,
             stats["reindexes"] = stats.get("reindexes", 0) + 1
         store = S.reindex(store)
     if reason & S.OFLOW_LEAVES:
-        before = int(store.n_alloc)
+        before = int(store.n_alloc.sum())
         if dead_fraction(store) >= policy.frozen_trigger:
             store = run_maintenance(store, policy, stats=stats,
                                     max_passes=policy.pressure_passes)
-        if int(store.n_alloc) >= before:
+        if int(store.n_alloc.sum()) >= before:
             store = grow(store, leaves=True)
             if stats is not None:
                 stats["grows"] = stats.get("grows", 0) + 1
     if reason & S.OFLOW_VERSIONS:
         cfg = store.cfg
-        n_vers = int(store.n_vers)
-        # compact() can reclaim at most n_vers - live_keys versions (every
-        # surviving key keeps >= 1): skip it when that cannot fit the batch
-        reclaimable_bound = n_vers - live_key_count(store)
+        n_vers, n_vers_sum = torch.stack(
+            [store.n_vers.max().long(), store.n_vers.sum()]).tolist()
+        # compact() can reclaim at most sum(n_vers) - live_keys versions
+        # (every surviving key keeps >= 1): skip it when that cannot fit
+        # the batch
+        reclaimable_bound = n_vers_sum - live_key_count(store)
         if (reclaimable_bound >= width
                 and n_vers >= policy.version_gc_fraction * cfg.max_versions):
             if stats is not None:
                 stats["compactions"] = stats.get("compactions", 0) + 1
             store, _ = S.compact(store)
-            n_vers = int(store.n_vers)
+            n_vers = int(store.n_vers.max())
         while n_vers + width > store.cfg.max_versions:
             store = grow(store, versions=True)
             if stats is not None:

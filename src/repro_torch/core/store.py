@@ -168,7 +168,8 @@ _INDEX_LEVEL_FIELDS = ("node_keys", "node_child", "node_cnt")
 
 def to_numpy(store: UruvStore) -> Dict[str, np.ndarray]:
     """Every store array as numpy, keyed by field name; the index's fields
-    as ``index.<name>`` and its levels as ``index.<name>.<l>``."""
+    as ``index.<name>`` and its levels as ``index.<name>.<l>``.  A stacked
+    store keeps its leading shard axis."""
     out = {}
     for f in dataclasses.fields(UruvStore):
         v = getattr(store, f.name)
@@ -192,7 +193,9 @@ def to_numpy(store: UruvStore) -> Dict[str, np.ndarray]:
 def from_numpy(arrays: Dict[str, np.ndarray], cfg: UruvConfig,
                device=None) -> UruvStore:
     """The store whose arrays are ``arrays`` (the :func:`to_numpy` layout,
-    e.g. a JAX store flattened by field name), on ``device``."""
+    e.g. a JAX store flattened by field name), on ``device``.  Arrays
+    with a leading shard axis (a JAX stacked store) give a stacked
+    store."""
     dev = resolve_device(device)
 
     def t(name):
@@ -213,6 +216,69 @@ def from_numpy(arrays: Dict[str, np.ndarray], cfg: UruvConfig,
     kw = {f.name: t(f.name) for f in dataclasses.fields(UruvStore)
           if f.name not in ("index", "cfg")}
     return UruvStore(index=_I.UruvIndex(cfg=icfg, **ix), cfg=cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Stacked (sharded) stores: every array with a leading [n_shards] axis
+# ---------------------------------------------------------------------------
+
+def is_stacked(store: UruvStore) -> bool:
+    """A stacked store (``repro_torch.core.sharded``) carries a leading
+    [n_shards] axis on every array, the clock included."""
+    return store.ts.dim() == 1
+
+
+def map_arrays(fn, *stores: UruvStore) -> UruvStore:
+    """The store whose every array (index levels included) is ``fn`` of
+    the same array of each of ``stores``; configs from the first."""
+    def index(ixs):
+        kw = {}
+        for g in dataclasses.fields(_I.UruvIndex):
+            if g.name == "cfg":
+                continue
+            vals = [getattr(ix, g.name) for ix in ixs]
+            kw[g.name] = ([fn(*lv) for lv in zip(*vals)]
+                          if g.name in _INDEX_LEVEL_FIELDS else fn(*vals))
+        return dataclasses.replace(ixs[0], **kw)
+
+    kw = {}
+    for f in dataclasses.fields(UruvStore):
+        if f.name == "cfg":
+            continue
+        vals = [getattr(s, f.name) for s in stores]
+        kw[f.name] = index(vals) if f.name == "index" else fn(*vals)
+    return dataclasses.replace(stores[0], **kw)
+
+
+def shard_view(store: UruvStore, s: int) -> UruvStore:
+    """Shard ``s`` of a stacked store: ``x[s]`` of every array (views, no
+    copy; a pass never writes into its input)."""
+    return map_arrays(lambda x: x[s], store)
+
+
+def shard_views(store: UruvStore):
+    return [shard_view(store, s) for s in range(store.ts.shape[0])]
+
+
+def stack_shards(stores, base: UruvStore = None) -> UruvStore:
+    """The stacked store of ``stores`` (the inverse of :func:`shard_view`).
+    An array that every shard still holds as its view of ``base`` is
+    taken from ``base`` as it is, without a copy."""
+    if base is None:
+        return map_arrays(lambda *xs: torch.stack(xs), *stores)
+
+    def stack(whole, *xs):
+        if all(x.data_ptr() == whole[s].data_ptr()
+               and x.shape == whole.shape[1:]
+               and x.stride() == whole.stride()[1:]
+               for s, x in enumerate(xs)):
+            return whole
+        return torch.stack(xs)
+
+    out = map_arrays(stack, base, *stores)
+    return dataclasses.replace(
+        out, cfg=stores[0].cfg,
+        index=dataclasses.replace(out.index, cfg=stores[0].index.cfg))
 
 
 def _i32(x, dev) -> torch.Tensor:
@@ -727,7 +793,12 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
 
     Per key it retains every version with ts > floor plus the one
     resolved at the floor, at most cfg.max_chain; fully dead keys go.
-    Returns (new_store, n_live_keys)."""
+    Returns (new_store, n_live_keys); a stacked store compacts every
+    shard against its own tracker and returns n_live_keys per shard."""
+    if is_stacked(store):
+        outs = [compact(v) for v in shard_views(store)]
+        return (stack_shards([o[0] for o in outs], base=store),
+                torch.stack([o[1] for o in outs]))
     cfg = store.cfg
     dev = store.device
     L, ML, MV, D = cfg.leaf_cap, cfg.max_leaves, cfg.max_versions, cfg.max_chain
@@ -832,7 +903,11 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
 def reindex(store: UruvStore) -> UruvStore:
     """Stop-the-world index repack at pack_fill — the recovery path for
     ``OFLOW_INDEX``.  Leaves, versions, clock and tracker are untouched,
-    so every result is byte-identical."""
+    so every result is byte-identical.  A stacked store repacks every
+    shard."""
+    if is_stacked(store):
+        return stack_shards([reindex(v) for v in shard_views(store)],
+                            base=store)
     return dataclasses.replace(
         store,
         index=_I.reindex(store.index, store.n_leaves, store.cfg.max_leaves),

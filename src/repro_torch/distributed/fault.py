@@ -6,8 +6,10 @@ battery drives both packages alike: named points on the WAL append /
 fsync / checkpoint publish paths SIGKILL the process mid-operation when
 ``URUV_CRASH_POINT`` selects them, and recovery is exercised against
 genuinely torn on-disk state, not a polite exception.  (The straggler
-monitor, ``reshard`` and ``run_with_restarts`` of that module belong to
-training and sharding, which the port does not carry yet.)
+monitor and ``run_with_restarts`` of that module belong to training,
+which the port does not carry yet.  ``reshard`` moves a store between
+meshes of devices; the port's sharded store keeps every shard on one
+device, so it waits for a machine with one shard per card.)
 """
 
 from __future__ import annotations

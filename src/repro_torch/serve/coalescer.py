@@ -5,7 +5,9 @@ the stats are the same.  One difference below the surface: the port's
 ``apply_nowait`` reads its pass's accept flag on the host when it
 dispatches (ROADMAP: the sync-free pass), so the overlap of host work
 with device work that the text below describes is not there yet; the
-results, the rejection replay and the futures are.
+results, the rejection replay and the futures are.  Over a client whose
+executor has no deferred dispatch (``Uruv.sharded``) the coalescer
+degrades to coalesced synchronous plans (``stats["plans_sync"]``).
 
 The paper's wait-free claim is about progress under heavy concurrent
 traffic; this layer is where that traffic actually lands.  Many small
@@ -156,6 +158,10 @@ class Coalescer:
             [] if record else None
         self._last_dup = 0.0
         self._queued_ops = 0
+        # executors without a deferred dispatch (sharded) raise
+        # NotImplementedError on first use; the coalescer then degrades
+        # to coalesced synchronous plans for its whole life
+        self._pipelined = True
         self._depth = max(1, 1 if exclusive else policy.inflight_depth)
         self.stats: Dict[str, int] = {
             "requests": 0, "ops": 0, "plans": 0, "plans_sync": 0,
@@ -262,14 +268,19 @@ class Coalescer:
         self._note_skew(np.asarray(plan.keys), np.asarray(plan.codes))
         if self.dispatch_log is not None:
             self.dispatch_log.append((plan, spans))
-        if not any(q.has_range for q in reqs):
+        if self._pipelined and not any(q.has_range for q in reqs):
             while len(self.inflight) >= self._depth:
                 self._retire_oldest()
-            pending = self.db.apply_nowait(plan, donate_store=self.exclusive)
-            self.inflight.append(_InFlight(pending, spans))
-            return
-        # host-driven pagination (RANGE): drain the pipeline (FIFO order),
-        # then one coalesced synchronous plan
+            try:
+                pending = self.db.apply_nowait(
+                    plan, donate_store=self.exclusive)
+            except NotImplementedError:
+                self._pipelined = False
+            else:
+                self.inflight.append(_InFlight(pending, spans))
+                return
+        # host-driven pagination (RANGE) or a sync-only executor: drain
+        # the pipeline (FIFO order), then one coalesced synchronous plan
         while self.inflight:
             self._retire_oldest()
         self.stats["plans_sync"] += 1

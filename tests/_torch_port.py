@@ -109,3 +109,70 @@ def assert_same_store(jax_store, port_store, where: str = "") -> None:
     from repro_torch.core.store import to_numpy
 
     assert_same_arrays(jax_arrays(jax_store), to_numpy(port_store), where)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's sharded code on one CPU device
+# ---------------------------------------------------------------------------
+
+def vmap_shard_map(f, *, mesh, in_specs, out_specs, **_):
+    """A stand-in for ``shard_map`` over ``jax.vmap`` along the mesh's one
+    axis: a ``P(axis)`` argument is split along a leading shard axis, a
+    ``P()`` / ``P(None)`` argument is shared, a ``P(axis)`` output is the
+    shards' blocks concatenated and a ``P()`` output is shard 0's.
+
+    jax 0.9's ``shard_map`` rejects the JAX store's ``lax.cond`` over
+    varying manual axes ("cond branches must have equal output types"),
+    so the JAX package's sharded tests fail under it; under ``vmap`` the
+    collectives (``psum``, ``all_gather``, ``all_to_all``,
+    ``axis_index``) keep their meaning and the package's own
+    ``make_apply`` / ``make_routed_apply`` / ``make_range_apply`` /
+    ``make_ops`` and ``ShardedExecutor`` run unchanged."""
+    (axis, n), = mesh.shape.items()
+
+    def split(spec):
+        return len(spec) > 0 and spec[0] == axis
+
+    def wrapped(*args):
+        args = [jax.tree.map(lambda x: x.reshape((n, -1) + x.shape[1:]), a)
+                if split(s) else a for a, s in zip(args, in_specs)]
+        outs = jax.vmap(f, in_axes=tuple(0 if split(s) else None
+                                         for s in in_specs),
+                        axis_name=axis)(*args)
+        single = not isinstance(out_specs, tuple)
+        outs, specs = ((outs,), (out_specs,)) if single else (outs, out_specs)
+        merged = tuple(
+            jax.tree.map(lambda x: x.reshape((-1,) + x.shape[2:]), o)
+            if split(s) else jax.tree.map(lambda x: x[0], o)
+            for o, s in zip(outs, specs))
+        return merged[0] if single else merged
+
+    return wrapped
+
+
+class FakeMesh:
+    """What the JAX sharded code reads of a mesh: ``shape[axis]``."""
+
+    def __init__(self, n: int, axis: str = "data"):
+        self.shape = {axis: n}
+
+
+def emulate_jax_sharding(monkeypatch) -> None:
+    """Run the JAX package's sharded code through :func:`vmap_shard_map`
+    (its ``shard_map``) and make ``ShardedExecutor._reshard`` the identity
+    (there is no mesh to pin to)."""
+    import repro.api.executors as JE
+    import repro.core.sharded as JS
+
+    monkeypatch.setattr(JS, "shard_map", vmap_shard_map)
+    monkeypatch.setattr(JE.ShardedExecutor, "_reshard", lambda self, st: st)
+
+
+def jax_stacked_store(base_cfg, n: int):
+    """A JAX stacked store of ``n`` empty shards (``sharded.create`` needs
+    a real mesh): ``S.create(base_cfg)`` broadcast along a shard axis."""
+    import jax.numpy as jnp
+    from repro.core import store as JS
+
+    return jax.tree.map(lambda x: jnp.array(jnp.broadcast_to(
+        x, (n,) + x.shape)), JS.create(base_cfg))

@@ -565,6 +565,69 @@ def test_client_on_card_equals_cpu(card):
                                       err_msg=name)
 
 
+def _drive_sharded(dev):
+    """Seeded mixed plans through ``Uruv.sharded`` (4 shards on ``dev``),
+    past growth and with a routing overflow: results and the stacked
+    store."""
+    from repro_torch.core.sharded import ShardedConfig
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = ShardedConfig(base=T.UruvConfig(leaf_cap=16, max_leaves=4,
+                                          max_versions=1 << 12,
+                                          tracker_cap=16, max_chain=16,
+                                          index_fanout=4), key_hi=4000)
+    db = T.Uruv.sharded(cfg, make_host_mesh(4, device=dev))
+    rng = np.random.default_rng(23)
+    res = []
+    for p in range(12):
+        r = rng.random(32)
+        codes = np.where(r < 0.5, T.OP_INSERT, np.where(
+            r < 0.65, T.OP_DELETE, T.OP_SEARCH)).astype(np.int32)
+        keys = rng.integers(0, 4000, 32).astype(np.int32)
+        if p == 6:                         # every key on shard 0
+            keys = keys % 1000
+        lo = rng.integers(0, 3800, 4).astype(np.int32)
+        out = db.apply(T.OpBatch.concat(
+            T.OpBatch(codes, keys, rng.integers(1, 999, 32)
+                      .astype(np.int32)),
+            T.OpBatch.ranges(lo, lo + 200)))
+        res += [out.values, out.timestamps, out.pages()]
+    with db.snapshot() as ts:
+        res.append(db.lookup(np.arange(0, 4000, 7, dtype=np.int32), ts))
+        res.append(db.range_all([0, 1990], [2010, 3999], ts))
+    res.append(db.compact())
+    res.append(db.stats)
+    for v in TS.shard_views(db.store):
+        TS.check_invariants(v)
+    return res, TS.to_numpy(db.store)
+
+
+def test_sharded_client_on_card_equals_cpu(card):
+    """The same plans through ``Uruv.sharded`` on the card and on the CPU:
+    the same results and counters, bit-equal stacked stores; the store
+    kernels launched on the card once per shard pass."""
+    _build.launch_counts.clear()
+    res_c, store_c = _drive_sharded("cuda")
+    launched = dict(_build.launch_counts)
+    _build.launch_counts.clear()
+    res_p, store_p = _drive_sharded("cpu")
+    assert not _build.launch_counts
+    assert all(launched.get(k, 0) > 0 for k in
+               ("index_descend", "leaf_slots_read", "range_scan"))
+    assert res_c[-1]["grows"] > 0 and res_c[-1]["device_passes"] > 0
+    assert len(res_c) == len(res_p)
+    for a, b in zip(res_c, res_p):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+    assert sorted(store_c) == sorted(store_p)
+    for name in store_c:
+        assert store_c[name].dtype == store_p[name].dtype, name
+        np.testing.assert_array_equal(store_c[name], store_p[name],
+                                      err_msg=name)
+
+
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 
 
