@@ -87,6 +87,37 @@ Phases, one line each (any failure exits non-zero):
                ``wal.mid_append`` and ``ckpt.renamed:2`` crash points and
                each directory recovers to a prefix that covers every plan
                the worker acknowledged and equals a host replay of it
+  8b. attention-bwd  the backward kernel (``csrc/flash_attention_bwd.cu``)
+               against ``attention_bwd_ref`` and the forward's logsumexp
+               against the twin's: fp32 and bf16; causal, window 64 and no
+               mask; GQA 32/8 and 8/8; Sq = Skv of 1, 63, 256 and 309;
+               rows with no unmasked key (lse -inf, dq 0); the gradients
+               within 1e-4 (fp32) / 2e-2 (bf16) of the call's largest
+               gradient element, lse within 1e-5 / 1e-4
+  8c. train    llama3.2-1b at full width (seeded fp32 parameters, bf16
+               compute, remat on), AdamW with 2 warmup steps, 8 steps of
+               ``make_batch(cfg, 8, 256, step)``: step ms (CUDA events),
+               tokens/s, peak memory, every loss (finite, the last below
+               the first), 32 forward and 16 backward attention launches
+               a step (remat reruns each layer's forward); no checkpoint
+  8d. pipeline / train-serve  a ``StreamingSampleStore`` on the card
+               ingests 262,144 sample ids in plans of 4096; an epoch at a
+               held snapshot, read by 8 readers in one pass while 16,384
+               more ids arrive, equals the host oracle; 4 batches of
+               ``epoch_iterator`` (B = 8, S = 256) train the full-width
+               state further; ``retire_below`` and ``compact``; the
+               trained parameters serve through the port's ``Engine``: 4
+               identical requests, 32 new tokens each, identical outputs;
+               the store kernels' launches in the phase
+  8e. train-cpu==cuda  one train step of llama3.2-1b at full width with 2
+               layers on the CPU (plain twins) and on the card, same
+               weights and batch: fp32 loss, grad norm and gradient within
+               1e-4, update within 1e-2 (relative norm); bf16 no more than
+               2x as far from the CPU's fp32 as the CPU's own bf16
+  8f. train-restart  reduced llama3.2-1b on the card through
+               ``run_with_restarts`` with a ``CheckpointManager`` under
+               ``build/``: 12 steps, and 12 with crashes at 6 and 10; losses
+               and parameters within rtol 1e-5 / atol 1e-6
  10. kernels   each kernel again at the widest inputs its path gave it:
                parity with its twin (exact for the int32 store kernels;
                attention within one bf16 ulp, atol 1e-5 + rtol 2^-7, in
@@ -101,7 +132,11 @@ Phases, one line each (any failure exits non-zero):
                held too few launches and CUDA events on a queued stream
                read it instead), and the attention rows add
                ``library_device_ms``, the same reading for the
-               ``scaled_dot_product_attention`` call.
+               ``scaled_dot_product_attention`` call.  The
+               ``flash_attention_bwd`` row is the backward at the train
+               phase's inputs (its library call SDPA's backward through
+               autograd), and the attention rows' ``launches`` add the
+               serve, train and train-serve phases' (``launches_by``).
                Each row's ``launches`` is the main path's count,
                ``sharded_launches`` the sharded phase's.  The main
                path runs the ``leaf_slots`` kernel only in place, through
@@ -192,6 +227,11 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:86"),
+    # the gradient of flash_attention: the TPU package has no backward
+    # kernel; XLA differentiates the models' jnp attention (_sdpa)
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/models/common.py:111"),
     "search_positions": ("src/repro_torch/csrc/uruv_search.cu",
                          "src/repro/kernels/uruv_search/uruv_search.py:60"),
 }
@@ -203,6 +243,7 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
 PASS_KERNELS = ("index_descend", "leaf_slots_read", "range_scan")
 STORE_KERNELS = PASS_KERNELS + ("versioned_read",)
 SERVE_KERNELS = PASS_KERNELS + ("flash_attention", "decode_attention")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 LATENCY_PROBE = "latency_probe"   # csrc source of load_latency_ms' chase
 L2_BYTES = 50 * 2**20         # H100 SXM L2 cache
 HBM_CHASE_MIB = 256           # latency probe cycles: five times the L2 ...
@@ -210,8 +251,23 @@ L2_CHASE_MIB = 4              # ... and far past L1, well inside the L2
 SCAN_PAGES = 8                # main path: scan_page calls under the snapshot
 SHARDS = 4                    # phase sharded: key-range shards on the card
 DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
+TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
 WORKER_MIXED = 4              # ... and 4 fig9b plans after their prefill
+TRAIN_B, TRAIN_S = 8, 256     # phase train: llama3.2-1b batch and sequence
+TRAIN_STEPS = 8               # ... steps, AdamW warmup over the first 2
+TRAIN_WARMUP = 2
+TRAIN_SERVE_BATCHES = 4       # phase train-serve: epoch batches trained on
+SAMPLE_IDS = 262_144          # phase pipeline: sample ids in the epoch ...
+SAMPLE_EXTRA = 16_384         # ... ingested while the epoch is held
+SAMPLE_RETIRE = 65_536        # ... consumed ids retired, then compact
+# attention-bwd: the backward kernel within this share of the call's
+# largest gradient element of its twin (fp32: summation order; bf16: the
+# outputs' one rounding); the forward's lse within these of the twin's
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
+TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
 
 
 def check(cond, msg: str) -> None:
@@ -1314,11 +1370,15 @@ def locate_report(main) -> dict:
         ms = time_ms(lambda: fn(*args, **kwargs))
         dev_ms, dev_by = device_ms(lambda: fn(*args, **kwargs))
         # launches per call of each kernel the trace holds (a trace can
-        # lose its last few launches, hence the rounding)
+        # lose its last few launches, hence the rounding; late in a run
+        # one can lose them all, so an empty trace is taken again, up to
+        # three times, as device_ms does)
         calls = 22
-        n_kern = sum(round(len(d) / calls) for d in
-                     kernel_trace(lambda: fn(*args, **kwargs),
-                                  calls).values())
+        for _ in range(3):
+            durs = kernel_trace(lambda: fn(*args, **kwargs), calls)
+            if durs:
+                break
+        n_kern = sum(round(len(d) / calls) for d in durs.values())
         out[form] = dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
                          kernels_per_call=n_kern)
         say("locate", form=form, P=a[3].numel(), ms=f"{ms:.5f}",
@@ -1684,7 +1744,9 @@ class AttnRecorder:
         def rec(*args, **kw):
             width = args[0].numel() * args[1].shape[-2]
             if width >= self.calls.get(name, (0,))[0]:
-                self.calls[name] = (width, args, kw)
+                # detached: a kept training input would keep its graph
+                self.calls[name] = (width, tuple(a.detach() for a in args),
+                                    kw)
             return fn(*args, **kw)
         return rec
 
@@ -1892,6 +1954,467 @@ def model_cpu_equals_cuda(args) -> None:
         bf16_cuda_from_fp32=f"{spread_cuda:.3e}",
         gate_bf16=f"cuda<={BF16_SPREAD}x_cpu",
         max_abs_err_bf16=f"{err16:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8b-8f: training — the attention's backward, llama3.2-1b steps, the
+# same step on the CPU, crash-restart, the sample store feeding the trainer
+# ---------------------------------------------------------------------------
+
+def _grad_err(got, want) -> float:
+    """Largest |got - want| over a call's gradients, over the largest
+    |want| element among them."""
+    scale = max(float(w.float().abs().max()) for w in want) or 1.0
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want)) / scale
+
+
+def attention_bwd_phase(dev) -> None:
+    """The backward kernel against ``attention_bwd_ref`` and the forward's
+    logsumexp against the twin's: fp32 and bf16; causal, window 64 and no
+    mask; GQA 32/8 and 8/8; Sq = Skv of 1, 63, 256 and 309; and rows with
+    no unmasked key.  Both backwards get the kernel forward's own o and
+    lse."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_ref)
+
+    g = torch.Generator().manual_seed(19)
+    worst = {}
+    n = 0
+    _build.launch_counts.clear()
+    for dtype in (torch.float32, torch.bfloat16):
+        for mask, causal, window in (("causal", True, 0),
+                                     ("window64", True, 64),
+                                     ("none", False, 0)):
+            for H, KVH in ((32, 8), (8, 8)):
+                for S in (1, 63, 256, 309):
+                    q, k, v, do = (
+                        torch.randn(s, generator=g).to(dev, dtype)
+                        for s in ((2, H, S, 64), (2, KVH, S, 64),
+                                  (2, KVH, S, 64), (2, H, S, 64)))
+                    o, lse = flash_attention(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+                    _, wlse = attention_ref(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+                    lse_err = float((lse - wlse).abs().max())
+                    got = flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+                    want = attention_bwd_ref(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+                    err = _grad_err(got, want)
+                    tag = f"{dtype} {mask} H={H}/{KVH} S={S}"
+                    check(all(bool(torch.isfinite(t).all()) for t in got),
+                          f"attention-bwd: non-finite gradient, {tag}")
+                    check(err <= BWD_TOL[dtype], f"attention-bwd: {tag}: "
+                          f"error {err:.3e} of max |grad| > {BWD_TOL[dtype]}")
+                    check(lse_err <= LSE_TOL[dtype], f"attention-bwd: {tag}:"
+                          f" lse off by {lse_err:.3e} > {LSE_TOL[dtype]}")
+                    w = worst.setdefault(str(dtype), [0.0, 0.0])
+                    w[0], w[1] = max(w[0], err), max(w[1], lse_err)
+                    n += 1
+    # rows with no unmasked key: a window past the kv length
+    q, k, v, do = (torch.randn(s, generator=g).to(dev) for s in
+                   ((1, 4, 16, 64), (1, 2, 4, 64), (1, 2, 4, 64),
+                    (1, 4, 16, 64)))
+    o, lse = flash_attention(q, k, v, causal=False, window=2,
+                             return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=False, window=2)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=False, window=2)
+    check(bool(torch.isneginf(lse[:, :, 5:]).all())
+          and bool((got[0][:, :, 5:] == 0).all())
+          and all(bool(torch.isfinite(t).all()) for t in got)
+          and _grad_err(got, want) <= BWD_TOL[torch.float32],
+          "attention-bwd: a row with no key is not lse = -inf, dq = 0")
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    check(counts.get("flash_attention_bwd") == n + 1,
+          f"attention-bwd: {counts} launches for {n + 1} calls")
+    say("attention-bwd", cases=n + 1,
+        max_err_of_max_grad_fp32=f"{worst[str(torch.float32)][0]:.3e}",
+        max_err_of_max_grad_bf16=f"{worst[str(torch.bfloat16)][0]:.3e}",
+        gate=f"fp32<={BWD_TOL[torch.float32]},bf16<="
+             f"{BWD_TOL[torch.bfloat16]}",
+        max_lse_err_fp32=f"{worst[str(torch.float32)][1]:.3e}",
+        max_lse_err_bf16=f"{worst[str(torch.bfloat16)][1]:.3e}",
+        lse_gate=f"fp32<={LSE_TOL[torch.float32]},bf16<="
+                 f"{LSE_TOL[torch.bfloat16]}")
+
+
+def _train_steps(step, state, batches, label: str):
+    """Run ``step`` over ``batches``; per step the device time (CUDA
+    events) and the loss.  Returns (state, losses, step_ms)."""
+    losses, step_ms = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+    check(all(np.isfinite(losses)), f"{label}: a loss is not finite: "
+                                    f"{losses}")
+    return state, losses, step_ms
+
+
+def train_phase(args) -> dict:
+    """llama3.2-1b at its published width: seeded fp32 parameters, bf16
+    compute, remat on, AdamW (warmup 2), ``TRAIN_STEPS`` steps of
+    ``make_batch(cfg, 8, 256, step)``; no checkpoint (the state is ~20 GB
+    of fp32)."""
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = get_arch("llama3_2_1b")
+    check(cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16"
+          and cfg.remat, f"train: {cfg.name} is not fp32 / bf16 / remat")
+    opt = adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS + TRAIN_SERVE_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(cfg, opt)
+    batches = [make_batch(cfg, TRAIN_B, TRAIN_S, s, args.seed,
+                          device="cuda") for s in range(TRAIN_STEPS)]
+    _build.launch_counts.clear()
+    with AttnRecorder(common) as rec:
+        state, losses, step_ms = _train_steps(step, state, batches, "train")
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    check(losses[-1] < losses[0],
+          f"train: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    # a step runs each layer's forward twice (remat recomputes it in the
+    # backward) and its backward once
+    check(counts.get("flash_attention") == 2 * L * TRAIN_STEPS
+          and counts.get("flash_attention_bwd") == L * TRAIN_STEPS,
+          f"train: kernel launches {counts} for {TRAIN_STEPS} steps of "
+          f"{L} layers")
+    steady = float(np.mean(step_ms[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    train_profile(lambda: step(state, batches[-1]), steady)
+    say("train", model=cfg.name, layers=L, d=cfg.d_model, vocab=cfg.vocab,
+        batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS, remat=cfg.remat,
+        init_s=f"{init_s:.3f}",
+        step_ms=json.dumps([round(x, 3) for x in step_ms]).replace(" ", ""),
+        step_ms_steady=f"{steady:.3f}",
+        tokens_per_s=f"{tokens / steady * 1e3:.1f}",
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        flash_attention_per_step=(counts.get("flash_attention", 0)
+                                  / TRAIN_STEPS),
+        flash_attention_bwd_per_step=(counts.get("flash_attention_bwd", 0)
+                                      / TRAIN_STEPS),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    return dict(cfg=cfg, state=state, step=step, counts=counts,
+                calls=rec.calls, step_ms=steady)
+
+
+def _train_group(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+        return "flash_attention_bwd"
+    if "flash_tc_kernel" in low or "flash_kernel" in low:
+        return "flash_attention"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def train_profile(run_step, step_ms: float) -> dict:
+    """One more train step under ``torch.profiler`` (device activity):
+    the kernels' time by group (the GEMMs, the attention's forward and
+    backward kernels, everything else), the device's busy time and its
+    idle share against the steady step time, the top other kernels."""
+    for _ in range(3):           # an empty trace is taken again
+        durs = kernel_trace(run_step, 1)
+        if durs:
+            break
+    groups = {"gemm": 0.0, "flash_attention": 0.0,
+              "flash_attention_bwd": 0.0, "other": 0.0}
+    for name, d in durs.items():
+        groups[_train_group(name)] += sum(d) / 1e3
+    busy = sum(groups.values())
+    top = sorted(((sum(d) / 1e3, n[:40]) for n, d in durs.items()
+                  if _train_group(n) == "other"), reverse=True)[:5]
+    out = dict(device_busy_ms=busy, idle_share=1 - busy / step_ms,
+               kernels=sum(len(d) for d in durs.values()),
+               groups_ms={k: round(v, 3) for k, v in groups.items()},
+               top_other_ms={n: round(t, 3) for t, n in top})
+    say("train-profile", step_ms=f"{step_ms:.3f}",
+        device_busy_ms=f"{busy:.3f}", idle_share=f"{out['idle_share']:.4f}",
+        kernels=out["kernels"],
+        groups_ms=json.dumps(out["groups_ms"]).replace(" ", ""),
+        top_other_ms=json.dumps(out["top_other_ms"]).replace(" ", ""))
+    return out
+
+
+def train_serve_phase(args, train: dict) -> dict:
+    """The sample store on the card feeds the trainer, and the trained
+    parameters serve: ``SAMPLE_IDS`` sample ids ingested in plans of
+    ``WIDTH``; an epoch taken at a held snapshot while ``SAMPLE_EXTRA``
+    more arrive, checked against a host oracle; ``TRAIN_SERVE_BATCHES``
+    batches of ``epoch_iterator`` into the full-width train step;
+    ``retire_below`` and ``compact``; then the port's ``Engine`` on the
+    trained parameters, 4 identical requests of 32 new tokens, which must
+    give identical outputs."""
+    from repro_torch.api import KEY_DOMAIN_HI
+    from repro_torch.data.pipeline import (
+        StreamingSampleStore, SyntheticCorpus, epoch_iterator)
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = train["cfg"]
+    rng = np.random.default_rng(args.seed + 11)
+    total = SAMPLE_IDS + SAMPLE_EXTRA
+    offsets = rng.integers(0, 1 << 30, total).astype(np.int32)
+    ids = np.arange(total, dtype=np.int32)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    store = StreamingSampleStore(device="cuda")
+    for i in range(0, SAMPLE_IDS, WIDTH):
+        store.ingest(ids[i:i + WIDTH], offsets[i:i + WIDTH])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+
+    # an epoch at a held snapshot while producers go on ingesting
+    snap = store.epoch_view()
+    for i in range(SAMPLE_IDS, total, WIDTH):
+        store.ingest(ids[i:i + WIDTH], offsets[i:i + WIDTH])
+    t0 = time.perf_counter()
+    edges = np.linspace(0, SAMPLE_IDS, 9).astype(int)
+    bounds = [(int(a), int(b) - 1) for a, b in zip(edges[:-1], edges[1:])]
+    bounds[-1] = (bounds[-1][0], KEY_DOMAIN_HI)
+    shards = store.read_shards(bounds, snap)
+    epoch_s = time.perf_counter() - t0
+    store.release(snap)
+    got = [kv for page in shards for kv in page]
+    check(got == list(zip(ids[:SAMPLE_IDS].tolist(),
+                          offsets[:SAMPLE_IDS].tolist())),
+          "pipeline: the held epoch differs from the host oracle")
+
+    # the trainer consumes the live epoch (every id ingested so far)
+    corpus = SyntheticCorpus(cfg.vocab, args.seed)
+    it = epoch_iterator(store, corpus, cfg, B=TRAIN_B, S=TRAIN_S)
+    try:
+        batches = [next(it) for _ in range(TRAIN_SERVE_BATCHES)]
+    finally:
+        it.close()
+    want = np.stack([corpus.tokens(TRAIN_S + 1, stream_seed=int(o))
+                     for o in offsets[:TRAIN_B]])
+    check(np.array_equal(batches[0]["tokens"].cpu().numpy(), want[:, :-1]),
+          "pipeline: the first batch is not the first ids' corpus tokens")
+    check(store.client.active_snapshots == 0,
+          "pipeline: the epoch's snapshot was not released")
+    state, losses, step_ms = _train_steps(train["step"], train["state"],
+                                          batches, "train-serve")
+    t0 = time.perf_counter()
+    store.retire_below(SAMPLE_RETIRE)
+    n_live = store.compact()
+    live = store.live_count()
+    retire_s = time.perf_counter() - t0
+    check(n_live == live == total - SAMPLE_RETIRE,
+          f"pipeline: {n_live} / {live} live after retire + compact, "
+          f"want {total - SAMPLE_RETIRE}")
+
+    # serve the trained parameters
+    eng = Engine(cfg, state.params, n_slots=4, max_len=128, device="cuda")
+    prompt = corpus.tokens(48, stream_seed=int(offsets[-1])).tolist()
+    reqs = [Request(rid=i, prompt=list(prompt), max_new=32)
+            for i in range(4)]
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == 32 for r in reqs),
+          "train-serve: a request did not finish")
+    check(all(r.out == reqs[0].out for r in reqs),
+          "train-serve: identical prompts gave different outputs")
+    counts = dict(_build.launch_counts)
+    for name in PASS_KERNELS + ("flash_attention", "flash_attention_bwd",
+                                "decode_attention"):
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the pipeline / train-serve path")
+    stats = store.client.stats
+    say("pipeline", ids=SAMPLE_IDS, plan=WIDTH, extra=SAMPLE_EXTRA,
+        ingest_s=f"{ingest_s:.3f}",
+        ids_per_s=f"{SAMPLE_IDS / ingest_s:.1f}",
+        epoch_readers=len(bounds), epoch_s=f"{epoch_s:.3f}",
+        retired=SAMPLE_RETIRE, retire_compact_s=f"{retire_s:.3f}",
+        live=live, grows=stats.get("grows", 0),
+        launches=json.dumps({k: counts.get(k, 0) for k in STORE_KERNELS},
+                            sort_keys=True).replace(" ", ""))
+    say("train-serve", batches=TRAIN_SERVE_BATCHES,
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        step_ms=json.dumps([round(x, 3) for x in step_ms]).replace(" ", ""),
+        requests=len(reqs), new_tokens=sum(len(r.out) for r in reqs),
+        serve_s=f"{serve_s:.3f}", outputs_identical=True,
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del eng, state, train["state"]
+    torch.cuda.empty_cache()
+    return dict(counts=counts)
+
+
+def _rel_norm(x, ref) -> float:
+    return float((x - ref).norm()) / max(float(ref.norm()), 1e-30)
+
+
+def train_cpu_equals_cuda(args) -> None:
+    """One train step of llama3.2-1b at full width with 2 layers on the
+    CPU (plain twins) and on the card (kernels), from the same weights
+    and batch, in fp32 and in bf16 compute.
+
+    fp32 holds the algorithm: loss and grad norm within rtol
+    ``FP32_TOL``; per leaf the clipped gradient (``m / (1 - b1)`` after
+    one step) within ``FP32_TOL`` in relative norm, and the update within
+    ``TRAIN_UPDATE_TOL`` (Adam's first step divides each gradient by its
+    own size: a gradient near 0 whose summation order differs moves its
+    element's update by up to 2·lr).  bf16 is held to the run's own
+    spread, as phase ``cpu==cuda-model`` does: the card's gradient and
+    update may stand at most ``BF16_SPREAD`` times as far (relative norm,
+    worst leaf) from the CPU's fp32 ones as the CPU's bf16 ones do, and
+    its loss within ``TRAIN_BF16_LOSS`` of the fp32 loss."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import steps
+
+    base = dataclasses.replace(get_arch("llama3_2_1b"), n_layers=2)
+    params = TT.init(base, torch.Generator().manual_seed(args.seed))
+    p0 = tree_leaves(params)
+    opt = adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    out = {}
+    secs = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=cdt)
+        step = steps.make_train_step(cfg, opt)
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            st = steps.TrainState(p, adamw.init(p), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            batch = make_batch(cfg, 2, 128, 0, args.seed, device=dev)
+            t0 = time.perf_counter()
+            st, met = step(st, batch)
+            loss = float(met["loss"])
+            secs[cdt, dev] = time.perf_counter() - t0
+            check(np.isfinite(loss), f"train-cpu==cuda: {cdt} loss on {dev}")
+            out[cdt, dev] = dict(
+                loss=loss, gnorm=float(met["grad_norm"]),
+                m=[m.cpu() for m in tree_leaves(st.opt.m)],
+                d=[q.cpu() - q0 for q, q0 in zip(tree_leaves(st.params),
+                                                 p0)])
+            del st
+    ref, c32 = out["float32", "cpu"], out["float32", "cuda"]
+    for key in ("loss", "gnorm"):
+        check(abs(c32[key] - ref[key]) <= FP32_TOL * abs(ref[key]),
+              f"train-cpu==cuda: fp32 {key} {c32[key]} != {ref[key]}")
+    m32 = max(_rel_norm(a, b) for a, b in zip(c32["m"], ref["m"]))
+    d32 = max(_rel_norm(a, b) for a, b in zip(c32["d"], ref["d"]))
+    check(m32 <= FP32_TOL, f"train-cpu==cuda: fp32 gradient off by {m32:.3e}"
+                           f" (relative norm, worst leaf) > {FP32_TOL}")
+    check(d32 <= TRAIN_UPDATE_TOL, f"train-cpu==cuda: fp32 update off by "
+                                   f"{d32:.3e} > {TRAIN_UPDATE_TOL}")
+    spread = {}
+    for dev in ("cpu", "cuda"):
+        o = out["bfloat16", dev]
+        spread[dev] = (
+            max(_rel_norm(a, b) for a, b in zip(o["m"], ref["m"])),
+            max(_rel_norm(a, b) for a, b in zip(o["d"], ref["d"])),
+            abs(o["loss"] - ref["loss"]) / abs(ref["loss"]))
+    for i, what in enumerate(("gradient", "update")):
+        check(spread["cuda"][i] <= BF16_SPREAD * spread["cpu"][i],
+              f"train-cpu==cuda: the card's bf16 {what} stands "
+              f"{spread['cuda'][i]:.3e} from fp32, more than {BF16_SPREAD}x"
+              f" the CPU's {spread['cpu'][i]:.3e}")
+    check(spread["cuda"][2] <= TRAIN_BF16_LOSS,
+          f"train-cpu==cuda: bf16 loss {out['bfloat16', 'cuda']['loss']} "
+          f"off the fp32 loss by {spread['cuda'][2]:.3e}")
+    say("train-cpu==cuda", model=base.name, layers=base.n_layers, batch=2,
+        seq=128, loss_fp32_cpu=f"{ref['loss']:.6f}",
+        loss_fp32_cuda=f"{c32['loss']:.6f}",
+        grad_norm_fp32_cpu=f"{ref['gnorm']:.6f}",
+        grad_norm_fp32_cuda=f"{c32['gnorm']:.6f}",
+        grad_err_fp32=f"{m32:.3e}", update_err_fp32=f"{d32:.3e}",
+        gate_fp32=f"loss,gnorm,grad<={FP32_TOL},update<={TRAIN_UPDATE_TOL}",
+        loss_bf16_cuda=f"{out['bfloat16', 'cuda']['loss']:.6f}",
+        grad_from_fp32_bf16_cpu=f"{spread['cpu'][0]:.3e}",
+        grad_from_fp32_bf16_cuda=f"{spread['cuda'][0]:.3e}",
+        update_from_fp32_bf16_cpu=f"{spread['cpu'][1]:.3e}",
+        update_from_fp32_bf16_cuda=f"{spread['cuda'][1]:.3e}",
+        gate_bf16=f"cuda<={BF16_SPREAD}x_cpu,loss<={TRAIN_BF16_LOSS}",
+        step_s=json.dumps({f"{c}/{d}": round(s, 3) for (c, d), s in
+                           secs.items()}).replace(" ", ""))
+
+
+def train_restart_phase(args) -> None:
+    """Reduced llama3.2-1b on the card through ``run_with_restarts`` with
+    a ``CheckpointManager`` under ``build/``: 12 steps uninterrupted, and
+    the same 12 with crashes at steps 6 and 10 (checkpoints every 4).
+    Losses and parameters agree at the JAX package's own tolerances
+    (``tests/test_checkpoint_fault.py``: rtol 1e-5, atol 1e-6)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.fault import run_with_restarts
+    from repro_torch.kernels import _build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps
+
+    cfg = get_arch("llama3_2_1b").reduced()
+    step = steps.make_train_step(cfg, adamw.AdamWConfig())
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    runs = {}
+    _build.launch_counts.clear()
+    for name, crash in (("a", []), ("b", [6, 10])):
+        t0 = time.perf_counter()
+        runs[name] = run_with_restarts(
+            init_fn=lambda: steps.init_state(cfg, torch.Generator(
+                device="cuda").manual_seed(args.seed)),
+            step_fn=step,
+            batch_fn=lambda s: make_batch(cfg, 2, 16, s, args.seed,
+                                          device="cuda"),
+            ckpt=CheckpointManager(TRAIN_CKPT_DIR / name, keep=3,
+                                   async_write=False, device="cuda"),
+            total_steps=12, ckpt_every=4, crash_at=crash)
+        runs[name] += (time.perf_counter() - t0,)
+    counts = dict(_build.launch_counts)
+    (sa, ha, ta), (sb, hb, tb) = runs["a"], runs["b"]
+    check(("restart", 6, 4) in hb and ("restart", 10, 8) in hb,
+          f"train-restart: no restarts in {hb}")
+    la = {s: l for k, s, l in ha if k == "step"}
+    lb = [(s, l) for k, s, l in hb if k == "step"]
+    check(len(lb) == 12 + 2 + 2, f"train-restart: {len(lb)} steps run")
+    loss_err = max(abs(l - la[s]) / abs(la[s]) for s, l in lb)
+    check(loss_err <= 1e-5, f"train-restart: losses differ by {loss_err}")
+    perr = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(sa.params), tree_leaves(sb.params)))
+    check(perr <= 1e-6, f"train-restart: parameters differ by {perr}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    say("train-restart", model=cfg.name, steps=12, crash_at="6,10",
+        ckpt_every=4, replayed=len(lb) - 12,
+        max_loss_rel_err=f"{loss_err:.3e}", max_param_err=f"{perr:.3e}",
+        bit_equal=bool(loss_err == 0 and perr == 0),
+        gate="rtol=1e-5,atol=1e-6", run_a_s=f"{ta:.3f}", run_b_s=f"{tb:.3f}",
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
 
 
 # ---------------------------------------------------------------------------
@@ -2142,11 +2665,13 @@ def durability_phase(args, api, rng, card: str,
 # phase 10 (attention): the two attention kernels at the serve path's inputs
 # ---------------------------------------------------------------------------
 
-def attention_report(serve) -> list:
+def attention_report(serve, train, train_serve) -> list:
     """The two attention kernels at the widest inputs the serve path gave
-    them; ``library_ms`` is one ``scaled_dot_product_attention`` call on
-    the same inputs (GQA, and for decode q as one row with a length
-    mask)."""
+    them, and the flash backward at the train phase's; ``library_ms`` is
+    one ``scaled_dot_product_attention`` call on the same inputs (GQA, and
+    for decode q as one row with a length mask), for the backward SDPA's
+    backward through autograd.  ``launches`` adds the serve path's, the
+    train phase's and the train-serve phase's (``launches_by``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.decode_attention import (
@@ -2236,9 +2761,12 @@ def attention_report(serve) -> list:
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flops / BF16_TC_FLOPS * 1e3
         src, replaces = KERNELS[name]
+        by = {phase: res["counts"].get(name, 0) for phase, res in
+              (("serve", serve), ("train", train),
+               ("train-serve", train_serve))}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=serve["counts"].get(name, 0), max_abs_err=err,
+            launches=sum(by.values()), launches_by=by, max_abs_err=err,
             ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
             bound_ms=max(bound_bytes, bound_ops),
             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -2253,7 +2781,94 @@ def attention_report(serve) -> list:
             library_device_ms_by=library_dev_by,
             max_abs_err=f"{err:.3e}",
             max_abs_err_fp32=f"{err32:.3e}")
+    rows.append(attention_bwd_report(train, train_serve))
     return rows
+
+
+def attention_bwd_report(train, train_serve) -> dict:
+    """The flash backward at the train phase's inputs (its q, k, v; o and
+    lse from the forward kernel; a seeded dO): parity with
+    ``attention_bwd_ref``, ``ms`` and ``device_ms``, the plain twin's
+    time, SDPA's backward through autograd (``library_ms``), and the
+    bound: q, k, v, o, dO and lse read once and dq, dk, dv written once,
+    against 2.5x the forward's tensor-core FLOPs (4 per unmasked pair and
+    head dim) at 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    name = "flash_attention_bwd"
+    _, a, kw = train["calls"]["flash_attention"]
+    q, k, v = (t.contiguous() for t in a)
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    g = torch.Generator(device=q.device).manual_seed(23)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+
+    def run():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+
+    def plain():
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    got, want = run(), plain()
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    rel = _grad_err(got, want)
+    check(rel <= BWD_TOL[q.dtype], f"{name} != plain at the train "
+                                   f"phase's inputs ({rel:.3e} of max)")
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=True)
+
+    def lib():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    ms = time_ms(run)
+    dev_ms, dev_by = device_ms(run)
+    plain_ms = time_ms(plain, iters=5)
+    library_ms = time_ms(lib)
+    library_dev_ms, library_dev_by = device_ms(lib)
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    qi = torch.arange(Sq)[:, None]
+    ki = torch.arange(Skv)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        ok &= qi >= ki
+    if window > 0:
+        ok &= qi - ki < window
+    pairs = int(ok.sum()) * B * H
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * lse.numel()           # q, o, dO, dq; k, v, dk, dv; lse
+    flops = 2.5 * 4 * pairs * D
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / BF16_TC_FLOPS * 1e3
+    by = {"train": train["counts"].get(name, 0),
+          "train-serve": train_serve["counts"].get(name, 0)}
+    src, replaces = KERNELS[name]
+    shape = f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D}"
+    say("kernel", name=name, shape=shape, dtype=str(q.dtype),
+        ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
+        plain_ms=f"{plain_ms:.5f}",
+        bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
+        library_ms=f"{library_ms:.5f}",
+        library_device_ms=f"{library_dev_ms:.5f}",
+        library_device_ms_by=library_dev_by,
+        max_abs_err=f"{err:.3e}", err_of_max_grad=f"{rel:.3e}",
+        launches_per_step=by["train"] / TRAIN_STEPS)
+    return dict(
+        name=name, route="cuda", source=src, replaces=replaces,
+        launches=sum(by.values()), launches_by=by,
+        launches_per_step=by["train"] / TRAIN_STEPS, max_abs_err=err,
+        ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
+        bound_ms=max(bound_bytes, bound_ops),
+        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        library_ms=library_ms, library_device_ms=library_dev_ms,
+        library_device_ms_by=library_dev_by)
 
 
 def main() -> int:
@@ -2304,11 +2919,17 @@ def main() -> int:
     lifecycle_phase(api, rng)
     serve_res = serve_phase(args, rng)
     model_cpu_equals_cuda(args)
+    attention_bwd_phase(torch.device("cuda"))
+    train_res = train_phase(args)
+    train_serve_res = train_serve_phase(args, train_res)
+    train_cpu_equals_cuda(args)
+    train_restart_phase(args)
     facts = main_res["facts"]
     durability_phase(args, api, rng, card,
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))
     lat = latencies(torch.device("cuda"))
-    rows = (kernel_report(main_res, lat["hbm"]) + attention_report(serve_res)
+    rows = (kernel_report(main_res, lat["hbm"])
+            + attention_report(serve_res, train_res, train_serve_res)
             + search_positions_report(main_res, api, rng, lat["l2"]))
     for row in rows:
         row["sharded_launches"] = sharded_res["counts"].get(row["name"], 0)

@@ -1,10 +1,9 @@
-"""Store checkpoints — full saves and delta chains — in the JAX package's
-on-disk format.
+"""Checkpoints of train states and stores — full saves and delta chains —
+in the JAX package's on-disk format.
 
-A port of the store path of ``repro.checkpoint.manager`` (DESIGN.md
-Sec 3 and 14):
+A port of ``repro.checkpoint.manager`` (DESIGN.md Sec 3 and 14):
 
-  * SAVE    — write each store array to a temporary step directory, then
+  * SAVE    — write each array to a temporary step directory, then
     rename it into place (atomic publish) and INSERT ``step -> 1`` into
     the step catalogue, itself a small port ``Uruv`` on the manager's
     device.
@@ -34,9 +33,16 @@ spelled ``__`` (``.index__.node_keys__0.npy``).  :func:`_disk_name` maps
 the port's ``store.to_numpy`` keys (``leaf_keys``, ``index.node_keys.0``)
 onto them, so either package restores a directory the other wrote.
 
-The generic pytree ``save`` / ``restore`` of the JAX manager (training
-state) is carried only as far as the store path uses it: :meth:`save`
-takes a flat list of named host arrays.
+Train states.  :meth:`save` takes a tree (nested dicts and
+``NamedTuple``s of tensors, e.g. ``repro_torch.train.steps.TrainState``)
+and writes every leaf under the JAX manager's tree-path name
+(``_tree_flatten``, the names of ``jax.tree_util.tree_flatten_with_path``:
+dict keys sorted, a ``NamedTuple`` field as ``.field``), e.g.
+``.params/layers/attn/wq``, ``.opt/.m/tok/embed``, ``.step``;
+:meth:`restore` rebuilds a tree of the structure of ``like`` on the
+manager's device.  A train checkpoint written by either package restores
+in the other.  The host copy is taken before :meth:`save` returns, so
+the caller may update the state's tensors in place at once.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.api import KEY_DOMAIN_HI, Uruv, UruvConfig
 from repro_torch.core.lifecycle import (
@@ -80,6 +87,36 @@ def _flatten(store) -> List[Tuple[str, np.ndarray]]:
     return [(_disk_name(k), v) for k, v in to_numpy(store).items()]
 
 
+def _tree_names(tree, fn, prefix=()):
+    """``tree`` with every leaf replaced by ``fn(name, leaf)``, where
+    ``name`` is the leaf's JAX tree-path name; dict keys are visited
+    sorted, as ``jax.tree_util`` flattens them."""
+    if isinstance(tree, dict):
+        return {k: _tree_names(tree[k], fn, prefix + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_names(getattr(tree, f), fn,
+                                        prefix + ("." + f,))
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_names(t, fn, prefix + (str(i),))
+                          for i, t in enumerate(tree))
+    return fn("/".join(prefix), tree)
+
+
+def _tree_flatten(tree) -> List[Tuple[str, np.ndarray]]:
+    """A tree's leaves as ``(JAX tree-path name, host array)``, in JAX's
+    flattening order."""
+    out = []
+
+    def host(name, leaf):
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach().cpu().numpy()
+        out.append((name, np.asarray(leaf)))
+    _tree_names(tree, host)
+    return out
+
+
 # version-pool arrays whose slots below the allocator watermark are
 # immutable between compactions (lifecycle.version_tail_start)
 _VER_TAIL_ARRAYS = (".ver_value", ".ver_ts", ".ver_next")
@@ -90,8 +127,9 @@ _DELTA_FULL_FRAC = 0.5
 
 
 class CheckpointManager:
-    """Checkpoints of a port store in ``directory``, with the step
-    catalogue on ``device`` (default ``cuda``; raises without it)."""
+    """Checkpoints of train states and port stores in ``directory``, with
+    the step catalogue on ``device`` (default ``cuda``; raises without
+    it), where restores also land."""
 
     def __init__(self, directory, keep: int = 3, async_write: bool = True,
                  *, device=None):
@@ -112,11 +150,15 @@ class CheckpointManager:
         self._load_existing()
 
     # ------------------------------------------------------------------ save
-    def save(self, leaves: List[Tuple[str, np.ndarray]], step: int,
+    def save(self, state, step: int,
              extra: Optional[Dict[str, Any]] = None) -> None:
-        """Write ``leaves`` (named host arrays, in order) as step
-        ``step``, every array in full."""
+        """Write ``state`` as step ``step``, every array in full: a tree
+        of tensors (a train state: each leaf under its tree-path name),
+        or a list of ``(name, host array)`` (the store path).  The host
+        copy is taken before this returns; the files are written in the
+        background when ``async_write``."""
         self.wait()                              # one in-flight write
+        leaves = state if isinstance(state, list) else _tree_flatten(state)
 
         def write():
             manifest = {"step": step, "leaves": [], **(extra or {})}
@@ -215,6 +257,20 @@ class CheckpointManager:
                     f"delta chain shape mismatch for {name}: "
                     f"{list(out[name].shape)} != {rec['shape']}")
         return out
+
+    def restore(self, like, step: Optional[int] = None):
+        """Restore a tree of the structure of ``like`` (its leaves only
+        name the arrays: tensors, or None) at ``step`` (default: the
+        newest complete one) onto the manager's device.  Returns
+        ``(tree, step)``."""
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError("no complete checkpoint found")
+        by_name = self._host_leaves(step)
+        return _tree_names(like, lambda name, _: torch.as_tensor(
+            by_name[name], device=self.device)), step
 
     # ------------------------------------------------- store-aware round-trip
     @staticmethod

@@ -49,6 +49,15 @@
 // port, fp32 FMAs on fp32 tiles.  Tensor cores in fp32 mean TF32, which
 // holds neither the fp32 gate nor the model's fp32 logits gate.
 //
+// lse: with a non-null pointer both kernels also write each row's
+// logsumexp of its scaled scores, fp32 [B, H, Sq], in the natural log
+// (the bf16 kernel's base-2 running max and sum are converted after the
+// key splits merge), -inf for a row with no unmasked key.  The backward
+// (flash_attention_bwd.cu) recomputes P = exp(S·scale - lse) from it.  The
+// write is a template variant (kLse): the serve path passes no pointer
+// and runs the kernel compiled without it (a runtime branch on the
+// pointer cost its bf16 kernel ~3 % on the card, PERF.md).
+//
 // Tiles wholly beyond the causal frontier, below the window floor or past
 // Skv are never loaded.  Edge conventions follow the TPU kernel exactly: a
 // masked score is NEG_INF = -1e30, a masked probability is 0, a row with
@@ -66,6 +75,10 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+// the lse of a row with no unmasked key: -inf
+__device__ __forceinline__ float lse_none() {
+  return __int_as_float(0xff800000);
+}
 
 // ---------------------------------------------------------------------------
 // fp32: scalar kernel.  One block owns (b, h, kBQ = 16 query rows); each of
@@ -90,13 +103,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// DC = head-dim chunks of 32 a lane accumulates (D <= 32 * DC)
-template <int DC>
+// DC = head-dim chunks of 32 a lane accumulates (D <= 32 * DC); kLse:
+// also write each row's lse
+template <int DC, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int H,
-             int KVH, int Sq, int Skv, int D, int causal, int window,
-             float scale) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int H, int KVH, int Sq, int Skv, int D,
+             int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* sq = smem;                   // [kBQ][D]   scaled queries
   float* sk = sq + kBQ * D;           // [kBK][D+1] keys (padded rows)
@@ -174,7 +188,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + warp * kRowsPerWarp + rr;
     if (qi >= Sq) continue;
     const float div = l[rr] == 0.f ? 1.f : l[rr];
-    float* orow = out + ((static_cast<size_t>(b) * H + h) * Sq + qi) * D;
+    const size_t row = (static_cast<size_t>(b) * H + h) * Sq + qi;
+    if (kLse && lane == 0)
+      lse[row] = l[rr] == 0.f ? lse_none() : m[rr] + logf(l[rr]);
+    float* orow = out + row * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int d = lane + 32 * c;
@@ -184,12 +201,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DC>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KVH, int Sq, int Skv, int D, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KVH, int Sq, int Skv, int D,
+           int causal, int window, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D);
-  auto kern = flash_kernel<DC>;
+  // the lse variant only where it is asked for: the serve path's kernel
+  // stays the code it was without one
+  auto kern = lse != nullptr ? flash_kernel<DC, true>
+                              : flash_kernel<DC, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -199,21 +219,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KVH, Sq,
-      Skv, D, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KVH,
+      Sq, Skv, D, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int KVH, int Sq, int Skv, int D, int causal, int window,
-             cudaStream_t s) {
-  if (D <= 32) return launch<1>(q, k, v, out, B, H, KVH, Sq, Skv, D, causal,
-                                window, s);
-  if (D <= 64) return launch<2>(q, k, v, out, B, H, KVH, Sq, Skv, D, causal,
-                                window, s);
-  if (D <= 128) return launch<4>(q, k, v, out, B, H, KVH, Sq, Skv, D, causal,
-                                 window, s);
-  return launch<8>(q, k, v, out, B, H, KVH, Sq, Skv, D, causal, window, s);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int H, int KVH, int Sq, int Skv, int D,
+             int causal, int window, cudaStream_t s) {
+  if (D <= 32) return launch<1>(q, k, v, out, lse, B, H, KVH, Sq, Skv, D,
+                                causal, window, s);
+  if (D <= 64) return launch<2>(q, k, v, out, lse, B, H, KVH, Sq, Skv, D,
+                                causal, window, s);
+  if (D <= 128) return launch<4>(q, k, v, out, lse, B, H, KVH, Sq, Skv, D,
+                                 causal, window, s);
+  return launch<8>(q, k, v, out, lse, B, H, KVH, Sq, Skv, D, causal, window,
+                   s);
 }
 
 }  // namespace scalar
@@ -323,15 +344,16 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; -1e30 gives +0
 }
 
 // DMAX: head dims the registers hold (D <= DMAX); BK: keys per kv tile,
-// of which each of a row group's KS warps takes BK / KS
-template <int DMAX, int BK>
+// of which each of a row group's KS warps takes BK / KS; kLse: also write
+// each row's lse
+template <int DMAX, int BK, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int H, int KVH, int Sq,
-                int Skv, int D, int causal, int window, float scale,
-                int async) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int H, int KVH, int Sq, int Skv, int D, int causal,
+                int window, float scale, int async) {
   constexpr int LD = DMAX + kPad;
   constexpr int KH = BK / KS;         // keys of a tile per warp
   constexpr int NT = KH / 8;          // n8 tiles of S per warp
@@ -562,6 +584,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     inv[i] = 1.f / (ll == 0.f ? 1.f : ll);   // a row with no key writes 0
+    // the natural-log lse of the merged row: (mm + log2 ll) · ln 2
+    const int qi = row0 + i * 8;
+    if (kLse && (lane & 3) == 0 && qi < Sq)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] =
+          ll == 0.f ? lse_none() : (mm + log2f(ll)) * 0.6931471805599453f;
   }
 
   // out = acc / l, rounded once to bf16
@@ -589,15 +616,16 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DMAX, int BK>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KVH, int Sq, int Skv, int D, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KVH, int Sq, int Skv, int D,
+           int causal, int window, cudaStream_t stream) {
   constexpr int LD = DMAX + kPad;
   const size_t smem = sizeof(__nv_bfloat16) * (BQ + 2 * kStages * BK) * LD;
   static_assert(sizeof(__nv_bfloat16) * 2 * kStages * BK * LD >=
                     sizeof(float) * RG * (KS - 1) * (4 + DMAX / 2) * 32,
                 "the K/V stages hold the key splits' exchange");
-  auto kern = flash_tc_kernel<DMAX, BK>;
+  auto kern = lse != nullptr ? flash_tc_kernel<DMAX, BK, true>
+                              : flash_tc_kernel<DMAX, BK, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -613,22 +641,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      H, KVH, Sq, Skv, D, causal, window,
+      lse, H, KVH, Sq, Skv, D, causal, window,
       1.0f / sqrtf(static_cast<float>(D)), async);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int KVH, int Sq, int Skv, int D, int causal, int window,
-             cudaStream_t s) {
-  if (D <= 32) return launch<32, 128>(q, k, v, out, B, H, KVH, Sq, Skv, D,
-                                      causal, window, s);
-  if (D <= 64) return launch<64, 128>(q, k, v, out, B, H, KVH, Sq, Skv, D,
-                                      causal, window, s);
-  if (D <= 128) return launch<128, 64>(q, k, v, out, B, H, KVH, Sq, Skv, D,
-                                       causal, window, s);
-  return launch<256, 32>(q, k, v, out, B, H, KVH, Sq, Skv, D, causal, window,
-                         s);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int H, int KVH, int Sq, int Skv, int D,
+             int causal, int window, cudaStream_t s) {
+  if (D <= 32) return launch<32, 128>(q, k, v, out, lse, B, H, KVH, Sq, Skv,
+                                      D, causal, window, s);
+  if (D <= 64) return launch<64, 128>(q, k, v, out, lse, B, H, KVH, Sq, Skv,
+                                      D, causal, window, s);
+  if (D <= 128) return launch<128, 64>(q, k, v, out, lse, B, H, KVH, Sq, Skv,
+                                       D, causal, window, s);
+  return launch<256, 32>(q, k, v, out, lse, B, H, KVH, Sq, Skv, D, causal,
+                         window, s);
 }
 
 }  // namespace tc
@@ -636,19 +664,21 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores); q, k, v
-// and out share it
+// and out share it.  lse: null, or fp32 [B, H, Sq] to receive each row's
+// logsumexp (natural log) for the backward
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int H, int KVH, int Sq,
-                               int Skv, int D, int causal, int window,
+                               void* out, void* lse, int B, int H, int KVH,
+                               int Sq, int Skv, int D, int causal, int window,
                                int dtype, void* stream) {
   if (D < 1 || D > 256 || KVH < 1 || H % KVH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return scalar::dispatch(q, k, v, out, B, H, KVH, Sq, Skv, D, causal,
+    return scalar::dispatch(q, k, v, out, l, B, H, KVH, Sq, Skv, D, causal,
                             window, s);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, out, B, H, KVH, Sq, Skv, D, causal, window,
-                        s);
+    return tc::dispatch(q, k, v, out, l, B, H, KVH, Sq, Skv, D, causal,
+                        window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,2 +1,3 @@
-"""Distributed helpers of the port: so far only the kill -9 fault
-injection (``fault.crash_point``) the durability battery drives."""
+"""Distributed helpers of the port: the kill -9 fault injection
+(``fault.crash_point``) the durability battery drives, the straggler
+monitor and the crash-restart training driver."""

@@ -1,22 +1,36 @@
-"""kill -9 fault injection for the durability battery.
+"""Fault tolerance: kill -9 fault injection, straggler monitoring,
+crash/restart.
 
-A port of the crash-point half of the JAX package's
-``repro.distributed.fault``, under the same environment selector, so one
-battery drives both packages alike: named points on the WAL append /
-fsync / checkpoint publish paths SIGKILL the process mid-operation when
-``URUV_CRASH_POINT`` selects them, and recovery is exercised against
-genuinely torn on-disk state, not a polite exception.  (The straggler
-monitor and ``run_with_restarts`` of that module belong to training,
-which the port does not carry yet.  ``reshard`` moves a store between
-meshes of devices; the port's sharded store keeps every shard on one
-device, so it waits for a machine with one shard per card.)
+A port of the JAX package's ``repro.distributed.fault``.  The pieces are
+host-level and deterministic, hence testable on the CPU:
+
+  * crash_point — the kill -9 fault-injection hook the durability battery
+    drives, under the JAX package's environment selector
+    (``URUV_CRASH_POINT``), so one battery drives both packages alike:
+    named points on the WAL append / fsync / checkpoint publish paths
+    SIGKILL the process mid-operation, and recovery is exercised against
+    genuinely torn on-disk state, not a polite exception.
+  * StragglerMonitor — EWMA + MAD step-time detector; pluggable actions
+    (shrink microbatch, flag host, trigger checkpoint).
+  * run_with_restarts — crash-simulating train-loop driver: training is
+    a pure function of (checkpoint, data stream step), so a restart
+    reproduces the exact trajectory (the attention's backward kernel has
+    no atomics, so this holds on the card too).
+
+``reshard`` (move a state onto a new mesh) waits for one shard per card
+(ROADMAP.md, Queue 1 item 7): the port keeps every shard on one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
-from typing import Callable, Dict, Optional
+import statistics
+import time
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.optim.adamw import tree_map
 
 CRASH_POINT_ENV = "URUV_CRASH_POINT"
 
@@ -56,3 +70,113 @@ def crash_point(name: str, flush: Optional[Callable[[], None]] = None) -> None:
     if flush is not None:
         flush()
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+# ---------------------------------------------------------------------------
+# straggler monitor
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StragglerEvent:
+    step: int
+    duration: float
+    median: float
+    factor: float
+
+
+class StragglerMonitor:
+    """Flags steps slower than ``factor`` x running median (+ MAD guard)."""
+
+    def __init__(self, window: int = 32, factor: float = 2.5,
+                 min_samples: int = 5):
+        self.window = window
+        self.factor = factor
+        self.min_samples = min_samples
+        self.durations: List[float] = []
+        self.events: List[StragglerEvent] = []
+        self.actions: List[Callable[[StragglerEvent], None]] = []
+
+    def on_straggler(self, fn: Callable[[StragglerEvent], None]) -> None:
+        self.actions.append(fn)
+
+    def record(self, step: int, duration: float) -> Optional[StragglerEvent]:
+        hist = self.durations[-self.window:]
+        self.durations.append(duration)
+        if len(hist) < self.min_samples:
+            return None
+        med = statistics.median(hist)
+        mad = statistics.median([abs(x - med) for x in hist]) or 1e-9
+        if duration > self.factor * med and duration > med + 6 * mad:
+            ev = StragglerEvent(step, duration, med, duration / med)
+            self.events.append(ev)
+            for fn in self.actions:
+                fn(ev)
+            return ev
+        return None
+
+    def timed(self, step: int):
+        mon = self
+
+        class _Timer:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                mon.record(step, time.perf_counter() - self.t0)
+
+        return _Timer()
+
+
+# ---------------------------------------------------------------------------
+# crash / restart
+# ---------------------------------------------------------------------------
+
+def run_with_restarts(
+    *,
+    init_fn: Callable[[], tuple],           # () -> state
+    step_fn: Callable,                      # (state, batch) -> (state, mets)
+    batch_fn: Callable[[int], Dict],        # step -> batch (deterministic)
+    ckpt,                                   # CheckpointManager
+    total_steps: int,
+    ckpt_every: int = 10,
+    crash_at: Optional[List[int]] = None,   # simulated host deaths
+):
+    """Crash-tolerant training driver.
+
+    On (simulated) crash: drop all live state, restore the latest complete
+    checkpoint, resume the deterministic data stream at the restored step.
+    Returns (final_state, per-step metrics including replays).  A restore
+    takes its tree structure from the state at hand (from ``init_fn()``
+    when the run starts from a checkpoint: JAX's ``eval_shape`` has no
+    twin here).
+    """
+    crash_at = sorted(crash_at or [])
+    history = []
+    step = 0
+    if ckpt.latest_step() is not None:
+        like = init_fn()
+        state, step = ckpt.restore(like)
+    else:
+        state = init_fn()
+        ckpt.save(state, 0)
+    like = tree_map(lambda _: None, state)   # names only, no memory
+
+    while step < total_steps:
+        if crash_at and step == crash_at[0]:
+            crash_at.pop(0)
+            ckpt.wait()
+            state = None                     # simulate losing device state
+            restored, rstep = ckpt.restore(like)
+            history.append(("restart", step, rstep))
+            state, step = restored, rstep
+            continue
+        batch = batch_fn(step)
+        state, metrics = step_fn(state, batch)
+        step += 1
+        history.append(("step", step, float(metrics.get("loss", 0.0))))
+        if step % ckpt_every == 0:
+            ckpt.save(state, step)
+    ckpt.wait()
+    return state, history
+

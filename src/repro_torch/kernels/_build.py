@@ -30,7 +30,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 SOURCES = ("uruv_search", "versioned_read", "uruv_range", "flash_attention",
-           "decode_attention")
+           "flash_attention_bwd", "decode_attention")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

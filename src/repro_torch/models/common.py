@@ -1,4 +1,4 @@
-"""Shared model blocks: norms, RoPE, attention, MLPs, embeddings.
+"""Shared model blocks: norms, RoPE, attention, MLPs, embeddings, loss.
 
 A port of the JAX package's ``repro.models.common``: pure functions over
 parameter dicts of tensors, with the JAX package's names and layouts
@@ -6,7 +6,9 @@ parameter dicts of tensors, with the JAX package's names and layouts
 Parameters are kept in ``param_dtype`` and cast to ``compute_dtype`` at
 every use, as in JAX.  Attention goes through the port's kernels: the
 hand-written CUDA kernels on a CUDA tensor, their plain twins on the CPU.
-Initializers take an explicit ``torch.Generator``.
+Initializers take an explicit ``torch.Generator``.  Everything here is
+differentiable: attention under autograd takes the backward kernel on
+the card (``kernels.flash_attention.ops``).
 """
 
 from __future__ import annotations
@@ -212,7 +214,9 @@ def init_embed(cfg: ArchConfig, gen: torch.Generator) -> Dict:
 
 
 def embed_tokens(cfg: ArchConfig, p: Dict, tokens: torch.Tensor):
-    x = p["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    # F.embedding, not indexing: its gradient on the card sums each row's
+    # contributions in a fixed order (indexing's scatter may not)
+    x = F.embedding(tokens, p["embed"]).to(dtype_of(cfg.compute_dtype))
     if cfg.family == "dense" and cfg.name.startswith("gemma"):
         x = x * (cfg.d_model ** 0.5)  # gemma embedding scaling
     return x
@@ -223,3 +227,23 @@ def unembed(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     w = p["embed"].to(cdt).T if cfg.tie_embeddings \
         else p["unembed"].to(cdt)
     return x.to(cdt) @ w
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, z_coef: float = 1e-4):
+    """Token CE with z-loss, in fp32 whatever the logits' dtype: logits
+    [B, S, V], labels and mask [B, S] -> (loss, {"nll", "acc"})."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    z = z_coef * (lse ** 2)
+    m = mask.float()
+    denom = m.sum().clamp_min(1.0)
+    loss = ((nll + z) * m).sum() / denom
+    acc = ((lf.argmax(-1) == labels) & mask.bool()).sum() / denom
+    return loss, {"nll": (nll * m).sum() / denom, "acc": acc}

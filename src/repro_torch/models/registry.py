@@ -1,5 +1,5 @@
 """Uniform model API of the port: the dense transformer family, plus the
-bridge that carries the JAX package's parameters across."""
+bridge that carries parameters between the port and the JAX package."""
 
 from __future__ import annotations
 
@@ -52,3 +52,12 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None) -> Dict:
             return {k: conv(v) for k, v in t.items()}
         return torch.as_tensor(np.array(t), device=dev)
     return conv(tree)
+
+
+def params_to_numpy(params: Dict) -> Dict:
+    """The inverse of :func:`params_from_numpy`: the port's parameters as
+    nested dicts of host numpy arrays, in the JAX package's layout (e.g.
+    trained parameters handed to the JAX engine)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().cpu().numpy()

@@ -14,15 +14,20 @@ API:
   decode_step(cfg, params, tokens [B], cache, lengths [B])
                                       -> (logits [B, V], cache')
 
-Only the forward runs in this port (no loss or gradient yet).
+``forward_train`` runs under autograd: the loss
+(``common.cross_entropy``) and its gradient are taken by
+``repro_torch.train.steps``, and with ``cfg.remat`` each layer is
+recomputed in the backward (``torch.utils.checkpoint``), as the JAX
+stack wraps each layer in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import common
@@ -83,6 +88,19 @@ def layer_params(params: Dict, l: int) -> Dict:
     return pick(params["layers"])
 
 
+def layer_list(cfg: ArchConfig, params: Dict) -> List[Dict]:
+    """Every layer's parameters, split off the stacked [L, ...] tensors by
+    one ``unbind`` each, whose gradient is one stack (a per-layer index
+    would scatter into a zero [L, ...] tensor for every layer)."""
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return [{k: v[l] for k, v in parts.items()}
+                    for l in range(cfg.n_layers)]
+        return torch.unbind(t, 0)
+    return split(params["layers"])
+
+
 def _device(params: Dict) -> torch.device:
     return params["tok"]["embed"].device
 
@@ -107,18 +125,30 @@ def _layer_fwd(cfg, lp, x, positions, window: int, causal: bool,
     return x + common.mlp_fwd(cfg, lp["mlp"], h), kv
 
 
+def _train_layer(cfg, lp, x, positions, window: int):
+    return _layer_fwd(cfg, lp, x, positions, window, True, False)[0]
+
+
 def forward_train(cfg: ArchConfig, params: Dict, tokens
                   ) -> Tuple[torch.Tensor, Dict]:
     """The forward of the training step: logits [B, S, V] and ``aux``
-    (the dense family's ``aux_loss`` is 0).  No loss or gradient here."""
+    (the dense family's ``aux_loss`` is 0), differentiable in ``params``.
+    With ``cfg.remat`` and grad mode on, each layer keeps only its input
+    and reruns in the backward (its window passed as a Python int)."""
     _dense_only(cfg)
     dev = _device(params)
     tokens = _tokens(tokens, dev)
     x = common.embed_tokens(cfg, params["tok"], tokens)
     positions = torch.arange(tokens.shape[1], device=dev)
-    for l, window in enumerate(layer_windows(cfg).tolist()):
-        x, _ = _layer_fwd(cfg, layer_params(params, l), x, positions,
-                          window, True, False)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp, window in zip(layer_list(cfg, params),
+                          layer_windows(cfg).tolist()):
+        if remat:
+            # no randomness inside a layer: no RNG state to replay
+            x = checkpoint(_train_layer, cfg, lp, x, positions, int(window),
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _train_layer(cfg, lp, x, positions, int(window))
     x = common.apply_norm(cfg, params["ln_f"], x)
     logits = common.unembed(cfg, params["tok"], x)
     return logits, {"aux_loss": torch.zeros((), device=dev)}

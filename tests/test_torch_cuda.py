@@ -7,7 +7,11 @@ tests/test_torch_cuda.py``.  The file imports neither ``jax`` nor
 integer, so its kernels must equal their twins exactly.  The attention
 kernels and their twins both compute in fp32 and round the result to the
 inputs' dtype: they agree within 2e-5 in fp32 (summation order) and
-within one rounding step in bf16 (atol 1e-5, rtol 2^-7).
+within one rounding step in bf16 (atol 1e-5, rtol 2^-7).  The attention
+backward is held to 1e-4 (fp32) and 2e-2 (bf16) of the call's largest
+gradient element, the forward's logsumexp to 1e-5 (fp32) and 1e-4 (bf16: the
+kernel's base-2 exponentials), and one train step on the card to the
+same step on the CPU.
 """
 
 import numpy as np
@@ -25,9 +29,12 @@ from repro_torch.kernels.decode_attention.decode_attention import (
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention,
+    flash_attention, flash_attention_bwd,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref,
+)
 from repro_torch.kernels.uruv_range.ref import range_scan_ref
 from repro_torch.kernels.uruv_range.uruv_range import range_scan
 from repro_torch.kernels.uruv_search.ref import (
@@ -751,3 +758,152 @@ def test_attention_launch_counts(card):
     torch.cuda.synchronize()
     assert dict(_build.launch_counts) == {"flash_attention": 3,
                                           "decode_attention": 3}
+
+
+# ---------------------------------------------------------------------------
+# the attention's backward, the forward's logsumexp, and training on the card
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max |grad|
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+BWD_SHAPES = [                 # B, H, KVH, Sq, Skv, D, causal, window
+    (2, 4, 2, 96, 96, 32, True, 0),
+    (1, 32, 8, 256, 256, 64, True, 0),      # llama3.2-1b train widths
+    (1, 32, 8, 309, 309, 64, True, 0),      # ... and its serve prompt
+    (1, 8, 8, 63, 63, 64, True, 64),
+    (2, 8, 2, 130, 130, 40, True, 70),      # window across kv tiles
+    (1, 4, 2, 37, 70, 128, False, 9),       # Sq != Skv
+    (1, 4, 4, 200, 77, 40, False, 100),     # Skv < Sq, no causal
+    (1, 2, 1, 20, 20, 256, True, 3),        # widest head dim
+    (1, 2, 1, 77, 77, 20, True, 0),         # D % 8 != 0
+    (1, 4, 2, 1, 1, 64, True, 0),           # one row
+]
+
+
+def _rel_close(got, want, tol, what, scale=None):
+    """|got - want| <= tol x ``scale`` (default: want's largest |element|)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    scale = scale or float(w.abs().max()) or 1.0
+    err = float((g - w).abs().max())
+    assert torch.isfinite(g).all(), what
+    assert err <= tol * scale, f"{what}: max abs {err} > {tol} x {scale}"
+
+
+def _qkv(card, dtype, B, H, KVH, Sq, Skv, D, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(card, dtype)
+            for s in ((B, H, Sq, D), (B, KVH, Skv, D), (B, KVH, Skv, D),
+                      (B, H, Sq, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,causal,win", BWD_SHAPES)
+def test_flash_attention_lse_matches_twin(card, B, H, KVH, Sq, Skv, D,
+                                          causal, win, dtype):
+    q, k, v, _ = _qkv(card, dtype, B, H, KVH, Sq, Skv, D, Sq + D)
+    out, lse = flash_attention(q, k, v, causal=causal, window=win,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    want, wlse = attention_ref(q, k, v, causal=causal, window=win,
+                               return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    _close(out, want, TOL[dtype])
+    np.testing.assert_allclose(lse.cpu().numpy(), wlse.cpu().numpy(),
+                               atol=LSE_TOL[dtype], rtol=1e-6)
+    # the serve path asks for no lse: the same output
+    _close(flash_attention(q, k, v, causal=causal, window=win), out, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,causal,win", BWD_SHAPES)
+def test_flash_attention_bwd_matches_twin(card, B, H, KVH, Sq, Skv, D,
+                                          causal, win, dtype):
+    q, k, v, do = _qkv(card, dtype, B, H, KVH, Sq, Skv, D, 7 * Sq + D)
+    o, lse = flash_attention(q, k, v, causal=causal, window=win,
+                             return_lse=True)
+    n0 = _build.launch_counts["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=win)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_bwd"] == n0 + 1
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=win)
+    # the call's largest gradient element (dq alone may be all but 0: one
+    # key gives dS = 0)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, a, b, ref in zip("qkv", got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == ref.shape
+        _rel_close(a, b, BWD_TOL[dtype], f"d{name}", scale)
+
+
+def test_flash_attention_bwd_masked_rows(card):
+    """A row with no unmasked key (a window past the kv length) has lse
+    -inf and adds nothing: its dq is 0, and no gradient is NaN."""
+    q, k, v, do = _qkv(card, torch.float32, 1, 2, 1, 16, 4, 32, 3)
+    o, lse = flash_attention(q, k, v, causal=False, window=2,
+                             return_lse=True)
+    assert torch.all(torch.isneginf(lse[:, :, 5:]))
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=False,
+                                     window=2)
+    assert torch.all(dq[:, :, 5:] == 0)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=False, window=2)
+    for a, b in zip((dq, dk, dv), want):
+        _rel_close(a, b, BWD_TOL[torch.float32], "masked rows")
+
+
+def test_attention_autograd_on_card(card):
+    """``ops.attention`` under autograd: one forward and one backward
+    launch, the CPU twins' gradient; without a gradient it is the forward
+    alone."""
+    q, k, v, do = _qkv(card, torch.float32, 2, 8, 2, 70, 70, 64, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _build.launch_counts.clear()
+    out = attention(*leaves, causal=True, window=24)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"flash_attention": 1,
+                                          "flash_attention_bwd": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    want = attention(*cpu, causal=True, window=24)
+    want.backward(do.cpu())
+    _close(out.detach(), want.detach(), TOL[torch.float32])
+    for a, b in zip(leaves, cpu):
+        _rel_close(a.grad, b.grad, BWD_TOL[torch.float32], "autograd")
+    with torch.no_grad():
+        assert attention(*leaves).grad_fn is None
+
+
+def test_train_step_on_card_equals_cpu(card):
+    """One AdamW step of reduced llama3.2-1b (fp32) on the card and on
+    the CPU from the same weights: loss and grad norm within 1e-5, the
+    clipped gradient (``(1 - b1)`` times the first moment) within 1e-4 of
+    its largest element, the update within 1e-2 in norm (Adam's first
+    step divides each gradient by its own size, so a gradient near 0 may
+    move its element's update by up to 2·lr)."""
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import steps
+
+    cfg = get_arch("llama3_2_1b").reduced()
+    opt = adamw.AdamWConfig(warmup_steps=2, total_steps=10)
+    step = steps.make_train_step(cfg, opt)
+    st0 = steps.init_state(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = tree_map(lambda t: t.clone().to(dev), st0)
+        _build.launch_counts.clear()
+        st, met = step(st, make_batch(cfg, 2, 48, 0, device=dev))
+        out[dev] = (st, met, dict(_build.launch_counts))
+    (sc, mc, _), (sg, mg, counts) = out["cpu"], out["cuda"]
+    L = cfg.n_layers
+    assert counts == {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(
+            float(mc[key]))
+    for a, b in zip(tree_leaves(sg.opt.m), tree_leaves(sc.opt.m)):
+        _rel_close(a, b, 1e-4, "first moment")
+    for pg, pc, p0 in zip(tree_leaves(sg.params), tree_leaves(sc.params),
+                          tree_leaves(st0.params)):
+        dg, dc = pg.cpu() - p0, pc - p0
+        assert float((dg - dc).norm()) <= 1e-2 * float(dc.norm())
