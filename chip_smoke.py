@@ -91,9 +91,14 @@ Phases, one line each (any failure exits non-zero):
                against ``attention_bwd_ref`` and the forward's logsumexp
                against the twin's: fp32 and bf16; causal, window 64 and no
                mask; GQA 32/8 and 8/8; Sq = Skv of 1, 63, 256 and 309;
+               bf16 at D 128 (train width) and at D 256 (the scalar
+               kernels: the C entry's dispatch names which served each,
+               and a trace's kernel names must agree);
                rows with no unmasked key (lse -inf, dq 0); the gradients
                within 1e-4 (fp32) / 2e-2 (bf16) of the call's largest
-               gradient element, lse within 1e-5 / 1e-4
+               gradient element, lse within 1e-5 / 1e-4; two bf16 calls at
+               the train shape bit-identical; the fp32 forward 200 times on
+               one input, every output and lse bit-identical to the first
   8c. train    llama3.2-1b at full width (seeded fp32 parameters, bf16
                compute, remat on), AdamW with 2 warmup steps, 8 steps of
                ``make_batch(cfg, 8, 256, step)``: step ms (CUDA events),
@@ -135,7 +140,10 @@ Phases, one line each (any failure exits non-zero):
                ``scaled_dot_product_attention`` call.  The
                ``flash_attention_bwd`` row is the backward at the train
                phase's inputs (its library call SDPA's backward through
-               autograd), and the attention rows' ``launches`` add the
+               autograd), with each of its kernels' device ms, the
+               achieved TFLOP/s of its 7 tile products and the same
+               inputs without the causal mask (twice the products), and
+               the attention rows' ``launches`` add the
                serve, train and train-serve phases' (``launches_by``).
                Each row's ``launches`` is the main path's count,
                ``sharded_launches`` the sharded phase's.  The main
@@ -185,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -266,6 +275,7 @@ SAMPLE_RETIRE = 65_536        # ... consumed ids retired, then compact
 # outputs' one rounding); the forward's lse within these of the twin's
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+FWD_REPEATS = 200             # attention-bwd: the fp32 forward, one input
 TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
 TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
 
@@ -1977,7 +1987,7 @@ def attention_bwd_phase(dev) -> None:
     lse."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_bwd)
+        _bwd_route, flash_attention, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_ref, attention_ref)
 
@@ -1985,36 +1995,93 @@ def attention_bwd_phase(dev) -> None:
     worst = {}
     n = 0
     _build.launch_counts.clear()
+
+    def case(dtype, B, H, KVH, S, D, causal, window, tag):
+        q, k, v, do = (
+            torch.randn(s, generator=g).to(dev, dtype)
+            for s in ((B, H, S, D), (B, KVH, S, D), (B, KVH, S, D),
+                      (B, H, S, D)))
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        _, wlse = attention_ref(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+        lse_err = float((lse - wlse).abs().max())
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+        err = _grad_err(got, want)
+        tag = f"{dtype} {tag} H={H}/{KVH} S={S} D={D}"
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"attention-bwd: non-finite gradient, {tag}")
+        check(err <= BWD_TOL[dtype], f"attention-bwd: {tag}: "
+              f"error {err:.3e} of max |grad| > {BWD_TOL[dtype]}")
+        check(lse_err <= LSE_TOL[dtype], f"attention-bwd: {tag}:"
+              f" lse off by {lse_err:.3e} > {LSE_TOL[dtype]}")
+        w = worst.setdefault(str(dtype), [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], lse_err)
+        return q, k, v, o, lse, do
+
     for dtype in (torch.float32, torch.bfloat16):
         for mask, causal, window in (("causal", True, 0),
                                      ("window64", True, 64),
                                      ("none", False, 0)):
             for H, KVH in ((32, 8), (8, 8)):
                 for S in (1, 63, 256, 309):
-                    q, k, v, do = (
-                        torch.randn(s, generator=g).to(dev, dtype)
-                        for s in ((2, H, S, 64), (2, KVH, S, 64),
-                                  (2, KVH, S, 64), (2, H, S, 64)))
-                    o, lse = flash_attention(q, k, v, causal=causal,
-                                             window=window, return_lse=True)
-                    _, wlse = attention_ref(q, k, v, causal=causal,
-                                            window=window, return_lse=True)
-                    lse_err = float((lse - wlse).abs().max())
-                    got = flash_attention_bwd(q, k, v, o, lse, do,
-                                              causal=causal, window=window)
-                    want = attention_bwd_ref(q, k, v, o, lse, do,
-                                             causal=causal, window=window)
-                    err = _grad_err(got, want)
-                    tag = f"{dtype} {mask} H={H}/{KVH} S={S}"
-                    check(all(bool(torch.isfinite(t).all()) for t in got),
-                          f"attention-bwd: non-finite gradient, {tag}")
-                    check(err <= BWD_TOL[dtype], f"attention-bwd: {tag}: "
-                          f"error {err:.3e} of max |grad| > {BWD_TOL[dtype]}")
-                    check(lse_err <= LSE_TOL[dtype], f"attention-bwd: {tag}:"
-                          f" lse off by {lse_err:.3e} > {LSE_TOL[dtype]}")
-                    w = worst.setdefault(str(dtype), [0.0, 0.0])
-                    w[0], w[1] = max(w[0], err), max(w[1], lse_err)
+                    case(dtype, 2, H, KVH, S, 64, causal, window, mask)
                     n += 1
+    bf16 = torch.bfloat16
+    # bf16 at D 128 (qwen3-4b's head dim) at train width; bf16 above D 128
+    # takes the scalar kernels: the C entry's dispatch says which served,
+    # and the trace's kernel names must agree where a trace holds them
+    case(bf16, 1, 32, 8, TRAIN_S, 128, True, 0, "causal")
+    n += 1
+    served = {}
+    for D in (64, 256):
+        args = case(bf16, 1, 4, 2, 70, D, True, 0, "causal")
+        n += 1
+        route = _bwd_route(bf16, D)
+        check(route == ("tc" if D <= 128 else "scalar"),
+              f"attention-bwd: bf16 D={D} dispatched to {route}")
+
+        def call(args=args):
+            q, k, v, o, lse, do = args
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        names = {}
+        for _ in range(3):           # an empty trace is taken again
+            n += 2
+            names = kernel_trace(call, 2)
+            if names:
+                break
+        seen = {("tc" if "::tc::" in nm else "scalar" if "::scalar::" in nm
+                 else "?") for nm in names}
+        check(not names or seen == {route},
+              f"attention-bwd: bf16 D={D} dispatched to {route}, traced "
+              f"{sorted(names)}")
+        served[D] = f"{route}/{'traced' if names else 'trace-empty'}"
+    # two bf16 calls at the train shape: the same gradient, bit for bit
+    q, k, v, o, lse, do = case(bf16, TRAIN_B, 32, 8, TRAIN_S, 64, True, 0,
+                               "causal")
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    n += 3
+    bit_same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(bit_same, "attention-bwd: two bf16 calls at the train shape "
+                    "differ")
+    # the fp32 forward on one input (the card test's autograd inputs),
+    # FWD_REPEATS times: every output and lse the first call's, bit for bit
+    gf = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=gf).to(dev) for s in
+               ((2, 8, 70, 64), (2, 2, 70, 64), (2, 2, 70, 64)))
+    o0, l0 = flash_attention(q, k, v, causal=True, window=24,
+                             return_lse=True)
+    differ = 0
+    for _ in range(FWD_REPEATS):
+        o, lse = flash_attention(q, k, v, causal=True, window=24,
+                                 return_lse=True)
+        differ += not (torch.equal(o, o0) and torch.equal(lse, l0))
+    check(differ == 0, f"attention-bwd: {differ} of {FWD_REPEATS} fp32 "
+                       f"forward calls differ from the first")
     # rows with no unmasked key: a window past the kv length
     q, k, v, do = (torch.randn(s, generator=g).to(dev) for s in
                    ((1, 4, 16, 64), (1, 2, 4, 64), (1, 2, 4, 64),
@@ -2032,7 +2099,10 @@ def attention_bwd_phase(dev) -> None:
     counts = dict(_build.launch_counts)
     check(counts.get("flash_attention_bwd") == n + 1,
           f"attention-bwd: {counts} launches for {n + 1} calls")
-    say("attention-bwd", cases=n + 1,
+    say("attention-bwd", calls=n + 1,
+        bf16_route=",".join(f"D{d}:{r}" for d, r in served.items()),
+        train_shape_bit_identical=bit_same,
+        fp32_forward_repeats=FWD_REPEATS, fp32_forward_differ=differ,
         max_err_of_max_grad_fp32=f"{worst[str(torch.float32)][0]:.3e}",
         max_err_of_max_grad_bf16=f"{worst[str(torch.bfloat16)][0]:.3e}",
         gate=f"fp32<={BWD_TOL[torch.float32]},bf16<="
@@ -2785,14 +2855,34 @@ def attention_report(serve, train, train_serve) -> list:
     return rows
 
 
+def _kernels_ms(fn, calls: int = 20) -> dict:
+    """Each kernel's mean device ms over ``calls`` calls of ``fn``, by
+    its name cut to its innermost namespace and template arguments
+    (``tc::dq_kernel<64, 64>``; a trace that comes back empty is taken
+    again, up to three times)."""
+    durs = {}
+    for _ in range(3):
+        durs = kernel_trace(fn, calls)
+        if durs:
+            break
+    out = {}
+    for name, d in durs.items():
+        m = re.search(r"(\w+::\w+(?:<[^>]*>)?)\(", name)
+        out[m.group(1) if m else name[:60]] = round(sum(d) / len(d) / 1e3,
+                                                     5)
+    return out
+
+
 def attention_bwd_report(train, train_serve) -> dict:
     """The flash backward at the train phase's inputs (its q, k, v; o and
     lse from the forward kernel; a seeded dO): parity with
-    ``attention_bwd_ref``, ``ms`` and ``device_ms``, the plain twin's
-    time, SDPA's backward through autograd (``library_ms``), and the
-    bound: q, k, v, o, dO and lse read once and dq, dk, dv written once,
-    against 2.5x the forward's tensor-core FLOPs (4 per unmasked pair and
-    head dim) at 989 TFLOP/s."""
+    ``attention_bwd_ref``, ``ms`` and ``device_ms``, each of its kernels'
+    device ms, the achieved TFLOP/s of the 7 tile products it does over
+    the unmasked pairs, the same inputs without the causal mask (twice
+    the pairs), the plain twin's time, SDPA's backward through autograd
+    (``library_ms``), and the bound: q, k, v, o, dO and lse read once and
+    dq, dk, dv written once, against 2.5x the forward's tensor-core FLOPs
+    (4 per unmasked pair and head dim) at 989 TFLOP/s."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -2829,9 +2919,18 @@ def attention_bwd_report(train, train_serve) -> dict:
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
     ms = time_ms(run)
     dev_ms, dev_by = device_ms(run)
+    kernels_ms = _kernels_ms(run)
     plain_ms = time_ms(plain, iters=5)
     library_ms = time_ms(lib)
     library_dev_ms, library_dev_by = device_ms(lib)
+    # the same inputs without the causal mask: twice the pairs
+    o_nc, lse_nc = flash_attention(q, k, v, causal=False, window=window,
+                                   return_lse=True)
+
+    def run_nc():
+        return flash_attention_bwd(q, k, v, o_nc, lse_nc, do, causal=False,
+                                   window=window)
+    nc_ms, _ = device_ms(run_nc)
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     qi = torch.arange(Sq)[:, None]
@@ -2845,6 +2944,8 @@ def attention_bwd_report(train, train_serve) -> dict:
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + 4 * lse.numel()           # q, o, dO, dq; k, v, dk, dv; lse
     flops = 2.5 * 4 * pairs * D
+    done_flops = 7 * 2 * pairs * D         # the 7 tile products it does
+    tflops = done_flops / (dev_ms * 1e-3) / 1e12
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / BF16_TC_FLOPS * 1e3
     by = {"train": train["counts"].get(name, 0),
@@ -2859,12 +2960,17 @@ def attention_bwd_report(train, train_serve) -> dict:
         library_device_ms=f"{library_dev_ms:.5f}",
         library_device_ms_by=library_dev_by,
         max_abs_err=f"{err:.3e}", err_of_max_grad=f"{rel:.3e}",
-        launches_per_step=by["train"] / TRAIN_STEPS)
+        launches_per_step=by["train"] / TRAIN_STEPS,
+        kernels_device_ms=json.dumps(kernels_ms).replace(" ", ""),
+        tflops_7_products=f"{tflops:.1f}",
+        noncausal_device_ms=f"{nc_ms:.5f}")
     return dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=sum(by.values()), launches_by=by,
         launches_per_step=by["train"] / TRAIN_STEPS, max_abs_err=err,
         ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
+        kernels_device_ms=kernels_ms, tflops_7_products=tflops,
+        noncausal_device_ms=nc_ms,
         bound_ms=max(bound_bytes, bound_ops),
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         library_ms=library_ms, library_device_ms=library_dev_ms,

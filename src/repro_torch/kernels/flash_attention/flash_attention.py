@@ -30,6 +30,7 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "flash_attention_bwd_route": (_I, _I),
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -115,3 +116,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd")
     return dq, dk, dv
+
+
+def _bwd_route(dtype, D: int) -> str:
+    """The kernels a CUDA :func:`flash_attention_bwd` call of this dtype
+    and head dim runs, as the C entry dispatches: ``"tc"`` (tensor cores)
+    or ``"scalar"``."""
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    return ("tc" if lib.flash_attention_bwd_route(int(D), DTYPE_CODE[dtype])
+            else "scalar")

@@ -30,34 +30,6 @@ def fresh_jax_caches():
     jax.clear_caches()
 
 
-MAX_MAPS = 40_000
-
-
-def _map_count() -> int:
-    """Memory maps this process holds (lines of ``/proc/self/maps``); 0
-    where the file does not exist."""
-    try:
-        with open("/proc/self/maps", "rb") as f:
-            return f.read().count(b"\n")
-    except OSError:
-        return 0
-
-
-@pytest.fixture(autouse=True)
-def bounded_jax_maps():
-    """Free JAX's compiled executables before a test once the process
-    holds more than ``MAX_MAPS`` memory maps.
-
-    The module-wide clear of :func:`fresh_jax_caches` is not enough: one
-    parity module can compile enough shapes to come near the kernel's
-    ``vm.max_map_count`` (65530) on its own, and an xdist worker also
-    carries the maps of the JAX package's tests it ran before.  Checking
-    per test costs one read of the maps file."""
-    if _map_count() > MAX_MAPS:
-        jax.clear_caches()
-    yield
-
-
 def jax_arrays(store) -> dict:
     """Every array of a JAX ``UruvStore``, numpy, keyed by field name."""
     s = jax.device_get(store)

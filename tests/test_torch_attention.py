@@ -9,10 +9,11 @@ TPU kernels' edge conventions (a row with no unmasked key gives 0), which
 the JAX oracle ``attention_ref`` does not; those rows are compared with
 the kernel only.
 
-Two tests carry the card kernels' designs where there is no card: a plain
-PyTorch emulation of the bf16 tensor-core flash kernel's roundings held
-to the card's bf16 gate, and the split-KV decode schedule with its
-combine held against the twin and the Pallas kernel.
+Three tests carry the card kernels' designs where there is no card: plain
+PyTorch emulations of the bf16 tensor-core flash kernel's roundings and
+of its backward's, each held to the card's bf16 gate, and the split-KV
+decode schedule with its combine held against the twin and the Pallas
+kernel.
 """
 
 import numpy as np
@@ -38,15 +39,19 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref,
+)
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    bounded_jax_maps, fresh_jax_caches,
+    fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 RNG = np.random.default_rng(7)
 NEG_INF = -1e30
 BF16_GATE = dict(atol=1e-5, rtol=2.0 ** -7)   # the card's bf16 gate
+BWD_GATE_BF16 = 2e-2          # the card's bf16 backward gate, of max |grad|
 SERVE_DECODE = (4, 32, 8, 512, 64)            # B, H, KVH, S, D (llama3.2-1b)
 H100_SMS = 132
 
@@ -266,6 +271,73 @@ def test_flash_tensor_core_numerics_hold_the_bf16_gate(B, H, KVH, Sq, Skv,
         once = _flash_tc_emulation(tq, tk, tv, causal=causal, window=win,
                                    split_p=False)
         assert not torch.allclose(once.float(), twin.float(), **BF16_GATE)
+
+
+def _flash_bwd_tc_emulation(q, k, v, o, lse, do, *, causal, window):
+    """The bf16 tensor-core backward's roundings in plain PyTorch: bf16 q,
+    k, v, o and dO; fp32 S = Q K^T and dP = dO V^T (exact bf16 products,
+    fp32 sums), S scaled by 1/sqrt(D) after the product, P = exp(S·scale -
+    lse) and dS = P ⊙ (dP - D), D = rowsum(dO ⊙ O), all in fp32; P and dS
+    rounded once to bf16 before dV = P^T dO, dK = dS^T Q and dQ = dS K
+    (fp32 sums, the GQA group summed in fp32); the outputs rounded once to
+    bf16, dq and dk after their scale."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    g = H // KVH
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    qi = torch.arange(Sq)[:, None]
+    ki = torch.arange(Skv)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        ok &= qi >= ki
+    if window > 0:
+        ok &= qi - ki < window
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (dof * o.float()).sum(-1, keepdim=True))
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq = (dsb @ kf) * scale
+    dk = ((dsb.transpose(-1, -2) @ qf) * scale).reshape(B, KVH, g, Skv, D)
+    dv = (pb.transpose(-1, -2) @ dof).reshape(B, KVH, g, Skv, D)
+    return dq.bfloat16(), dk.sum(2).bfloat16(), dv.sum(2).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,causal,win", [
+    (8, 32, 8, 256, 256, 64, True, 0),    # llama3.2-1b train shape
+    (1, 32, 8, 309, 309, 64, True, 0),    # ... its serve prompt
+    (2, 8, 2, 256, 256, 64, True, 64),    # window 64
+    (1, 32, 8, 256, 256, 128, True, 0),   # qwen3-4b's head dim
+    (2, 8, 2, 130, 130, 40, True, 70),    # D 40, window across kv tiles
+])
+def test_flash_bwd_tensor_core_numerics_hold_the_bf16_gate(B, H, KVH, Sq,
+                                                           Skv, D, causal,
+                                                           win):
+    """The bf16 backward's design, checked without a card: P and dS
+    rounded once to bf16 as tensor-core operands (no hi + lo split) keep
+    the gradient within the card's gate, 2e-2 of the call's largest
+    gradient element, of ``attention_bwd_ref`` (fp32 arithmetic) on the
+    same bf16 inputs, o and lse."""
+    arrs = [RNG.standard_normal(s).astype(np.float32)
+            for s in ((B, H, Sq, D), (B, KVH, Skv, D), (B, KVH, Skv, D),
+                      (B, H, Sq, D))]
+    tq, tk, tv, tdo = (torch.tensor(a).bfloat16() for a in arrs)
+    o, lse = attention_ref(tq, tk, tv, causal=causal, window=win,
+                           return_lse=True)
+    got = _flash_bwd_tc_emulation(tq, tk, tv, o, lse, tdo, causal=causal,
+                                  window=win)
+    want = attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal,
+                             window=win)
+    top = max(float(w.float().abs().max()) for w in want)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all()), f"d{name}"
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_GATE_BF16 * top, (
+            f"d{name}: {err} > {BWD_GATE_BF16} x {top}")
 
 
 def test_masked_row_convention_follows_the_kernel():

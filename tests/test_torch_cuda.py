@@ -777,6 +777,10 @@ BWD_SHAPES = [                 # B, H, KVH, Sq, Skv, D, causal, window
     (1, 2, 1, 20, 20, 256, True, 3),        # widest head dim
     (1, 2, 1, 77, 77, 20, True, 0),         # D % 8 != 0
     (1, 4, 2, 1, 1, 64, True, 0),           # one row
+    (1, 32, 8, 256, 256, 128, True, 0),     # D 128 at train width
+    (1, 4, 2, 100, 100, 72, True, 0),       # D % 16 != 0: padded cp.async
+    (1, 4, 2, 90, 90, 36, True, 20),        # D % 8 != 0: plain loads
+    (1, 8, 2, 150, 200, 64, True, 0),       # Sq % 64 != 0, Sq != Skv, causal
 ]
 
 
@@ -833,6 +837,18 @@ def test_flash_attention_bwd_matches_twin(card, B, H, KVH, Sq, Skv, D,
     for name, a, b, ref in zip("qkv", got, want, (q, k, v)):
         assert a.dtype == dtype and a.shape == ref.shape
         _rel_close(a, b, BWD_TOL[dtype], f"d{name}", scale)
+
+
+def test_flash_attention_bwd_is_bit_identical_run_to_run(card):
+    """No two blocks write one gradient element (no atomics): two calls at
+    the train shape give the same dq, dk and dv, bit for bit."""
+    q, k, v, do = _qkv(card, torch.bfloat16, 8, 32, 8, 256, 256, 64, 11)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bwd_masked_rows(card):

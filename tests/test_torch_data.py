@@ -21,8 +21,9 @@ from repro_torch.core.store import to_numpy
 from repro_torch.data import pipeline as TP
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_arrays, bounded_jax_maps, fresh_jax_caches, jax_arrays,
+    assert_same_arrays, fresh_jax_caches, jax_arrays,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 
 def _cfgs(kind: str):

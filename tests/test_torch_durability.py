@@ -52,8 +52,9 @@ from repro_torch.durability.wal import PAY_HEADER, REC_HEADER
 from repro_torch.serve.coalescer import AdmissionPolicy, Coalescer
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_arrays, assert_same_store, bounded_jax_maps, fresh_jax_caches,
+    assert_same_arrays, assert_same_store, fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 ROOT = Path(__file__).resolve().parents[1]
 

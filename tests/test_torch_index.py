@@ -20,8 +20,9 @@ from repro.core.ref import KEY_MAX
 from repro_torch.core import index as TI
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_arrays, bounded_jax_maps, fresh_jax_caches,
+    assert_same_arrays, fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 
 _j_split = jax.jit(JI.apply_split_delta)

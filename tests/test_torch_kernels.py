@@ -52,8 +52,9 @@ from repro_torch.kernels.versioned_read.ref import versioned_read_ref
 from repro_torch.kernels.versioned_read.versioned_read import versioned_read
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    bounded_jax_maps, fresh_jax_caches,
+    fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 TOMB = -(2**31) + 1
 

@@ -22,8 +22,9 @@ from repro_torch.core import lifecycle as LC
 from repro_torch.core import store as TS
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_store, bounded_jax_maps, fresh_jax_caches,
+    assert_same_store, fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 FIXED = dict(auto_grow=False, auto_maintain=False)
 

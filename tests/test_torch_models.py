@@ -27,8 +27,9 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.registry import get_model, params_from_numpy
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    bounded_jax_maps, fresh_jax_caches,
+    fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b"]
 TOL = dict(atol=5e-3, rtol=5e-3)

@@ -31,8 +31,9 @@ from repro_torch.serve.coalescer import AdmissionPolicy, Coalescer, OpFuture
 from repro_torch.serve.engine import Engine, Request, prefix_hash
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_store, bounded_jax_maps, fresh_jax_caches,
+    assert_same_store, fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 CFG = dict(leaf_cap=8, max_leaves=512, max_versions=1 << 14, max_chain=16)
 

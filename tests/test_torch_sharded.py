@@ -37,9 +37,10 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.serve.coalescer import AdmissionPolicy, Coalescer
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    FakeMesh, assert_same_arrays, bounded_jax_maps, emulate_jax_sharding,
+    FakeMesh, assert_same_arrays, emulate_jax_sharding,
     fresh_jax_caches, jax_arrays, jax_stacked_store,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 N = 4
 KEY_HI = 1000

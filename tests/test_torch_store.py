@@ -23,8 +23,9 @@ from repro_torch.core import batch as TB
 from repro_torch.core import store as TS
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    assert_same_store, bounded_jax_maps, fresh_jax_caches, to_port,
+    assert_same_store, fresh_jax_caches, to_port,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 W = 32
 CFG = JS.UruvConfig(leaf_cap=8, max_leaves=128, max_versions=4096,

@@ -59,8 +59,9 @@ from repro_torch.train import loop as TL
 from repro_torch.train import steps as TS
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
-    bounded_jax_maps, fresh_jax_caches,
+    fresh_jax_caches,
 )
+pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 STEP_TOL = dict(rtol=1e-5)
 PARAM_TOL = dict(atol=1e-6, rtol=0)
