@@ -33,6 +33,17 @@ Phases, one line each (any failure exits non-zero):
                (the standalone ``versioned_read``'s path) under a held
                snapshot; every result is checked against a host-side
                oracle, then ``check_invariants`` and ``live_items``
+  4a. baseline the paper's flat-array baseline (``repro_torch.core.
+               baseline``) beside the main store: a ``FlatStore`` of
+               2,097,152 slots loaded with the main phase's keys, then the
+               fig8a/b/c and fig9b mixes as ``benchmarks/workloads.py``
+               drives them (an update batch re-sorting the whole array, a
+               lookup batch, the mix's ranges of 1000 through
+               ``range_query_validated``), 2 warm-up and 5 timed bodies of
+               4 batches; every lookup and range against the host oracle,
+               the arrays against a CPU ``FlatStore`` fed the same batches
+               bit for bit; ops/s per mix and scans per range beside
+               Uruv's fig9b
   4b. profile two more fig9b plans under ``torch.profiler`` (device
                activity): wall time, device busy time, idle share,
                kernels and device-to-host copies per plan, top kernels
@@ -70,11 +81,23 @@ Phases, one line each (any failure exits non-zero):
                in the first wave's others and the follow-ups, the fresh
                request's reuse printed (ROADMAP reference fault R1), the launch
                counts of all six kernels, the snapshot released
-  8. cpu==cuda model  llama3.2-1b at full width with 2 layers, the same
-               weights on the CPU and on cuda: prefill + 8 teacher-forced
-               decode steps; fp32 logits within atol = rtol = 1e-4, and
-               the bf16 logits no further from the CPU's fp32 logits than
-               twice as far as the CPU's own bf16 logits are
+  7b. serve-gemma3  the same engine with gemma3-1b at its published
+               width (26 layers, d 1152, 4 heads on 1 kv head, head_dim
+               256, vocab 262,144, a window of 1024 on five layers of
+               six), 4 slots, max_len 2048, two waves of 4 requests on a
+               shared 1,200-token system prompt + 8 own tokens, 48 new
+               tokens each: decode lengths 1,208-1,256, past the window,
+               so the windowed prefill and the windowed decode kernel
+               run (their calls counted apart); the prefix table against
+               the host dict, tokens/s, prefill and decode ms, peak memory
+  8. cpu==cuda model  llama3.2-1b and gemma3-1b at full width with 2
+               layers each (gemma3: one local layer, window 1024, one
+               global), the same weights on the CPU and on cuda: prefill
+               (16 tokens; gemma3 1,100) + 8 teacher-forced decode steps;
+               the prefill's last row and every step's logits: fp32
+               within atol = rtol = 1e-4, and the bf16 logits no further
+               from the CPU's fp32 logits than twice as far as the CPU's
+               own bf16 logits are
   9. durability the main configuration as a durable client
                (``durable_dir``, ``group_commit=8``): prefill, a full
                ``checkpoint()``, ``--plans`` fig9b plans, a delta
@@ -98,7 +121,9 @@ Phases, one line each (any failure exits non-zero):
                within 1e-4 (fp32) / 2e-2 (bf16) of the call's largest
                gradient element, lse within 1e-5 / 1e-4; two bf16 calls at
                the train shape bit-identical; the fp32 forward 200 times on
-               one input, every output and lse bit-identical to the first
+               one input, every output and lse bit-identical to the first,
+               and that output and the CPU twin's each within 2e-5 of the
+               twin's arithmetic in float64
   8c. train    llama3.2-1b at full width (seeded fp32 parameters, bf16
                compute, remat on), AdamW with 2 warmup steps, 8 steps of
                ``make_batch(cfg, 8, 256, step)``: step ms (CUDA events),
@@ -144,7 +169,13 @@ Phases, one line each (any failure exits non-zero):
                achieved TFLOP/s of its 7 tile products and the same
                inputs without the causal mask (twice the products), and
                the attention rows' ``launches`` add the
-               serve, train and train-serve phases' (``launches_by``).
+               serve, serve-gemma3, train and train-serve phases'
+               (``launches_by``).  Three more attention rows, each with
+               a ``reading`` key, are gemma3-1b's: the windowed prefill
+               (D 256, window 1024) and the decode with its window and,
+               on the same inputs, without it, each with the
+               serve-gemma3 phase's launches of that variant, a bound
+               over the rows the mask keeps and SDPA with the same mask.
                Each row's ``launches`` is the main path's count,
                ``sharded_launches`` the sharded phase's.  The main
                path runs the ``leaf_slots`` kernel only in place, through
@@ -192,6 +223,7 @@ written here.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -209,6 +241,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM published HBM3 bandwidth
 INT32_OPS_PER_S = 67e12       # published non-tensor 32-bit rate (fp32 figure)
 BF16_TC_FLOPS = 989e12        # published dense bf16 tensor-core rate
 SYSTEM_PROMPT = 256           # serve phase: shared prompt prefix, tokens
+GEMMA_SYSTEM = 1200           # serve-gemma3: shared system prompt, tokens
+GEMMA_OWN = 8                 # ... each request's own tokens after it
+GEMMA_NEW = 48                # ... new tokens a request
+GEMMA_MAX_LEN = 2048          # ... the engine's cache rows a slot
+GEMMA_PREFILL = 1100          # cpu==cuda-model gemma3: prompt tokens
 FP32_TOL = 1e-4               # model phase: fp32 logits, CPU vs card
 BF16_SPREAD = 2.0             # model phase: card/CPU distance of bf16 to fp32
 BF16_ULP = 2.0 ** -7          # attention: one bf16 ulp, relative, at worst
@@ -276,6 +313,7 @@ SAMPLE_RETIRE = 65_536        # ... consumed ids retired, then compact
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 FWD_REPEATS = 200             # attention-bwd: the fp32 forward, one input
+FP32_ATTN_TOL = 2e-5          # ... each fp32 side from float64 (card tests)
 TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
 TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
 
@@ -954,7 +992,7 @@ def main_path(args, api, rng) -> dict:
         check(counts.get(name, 0) > 0, f"kernel {name} never ran on the "
                                        "main path")
     return dict(counts=counts, calls=rec.calls, store=db.store, facts=facts,
-                stats=stats, db=db)
+                stats=stats, db=db, oracle=oracle)
 
 
 # ---------------------------------------------------------------------------
@@ -1008,6 +1046,161 @@ def profile_plans(db, api, rng, n_plans: int = 2,
         top_kernels_ms=json.dumps({n[:40]: round(us / 1e3, 4)
                                    for n, us in top}).replace(" ", ""))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the paper's flat-array baseline beside the main store
+# ---------------------------------------------------------------------------
+
+# the paper's mixes (benchmarks/workloads.py FIG8, FIG9): read share,
+# update share (half inserts, half deletes), range share; ranges of 1000
+BASELINE_MIXES = {"fig8a_read100": (1.0, 0.0, 0.0),
+                  "fig8b_read95_upd5": (0.95, 0.05, 0.0),
+                  "fig8c_read50_upd50": (0.5, 0.5, 0.0),
+                  "fig9b_r90_u5_rq5": (0.90, 0.05, 0.05)}
+BASELINE_CAPACITY = 1 << 21   # slots: 16 MiB of int32 keys and values
+BASELINE_ITERS = 4            # batches a timed body (workloads.run_flat)
+BASELINE_MAX_RESULTS = 2048
+
+
+def baseline_batch(rng, read: float, update: float, range_q: float,
+                   key_max: int, tombstone: int):
+    """``benchmarks/workloads.py`` ``op_batch``: (lookup keys, update
+    keys, update values, range queries) for one pass of WIDTH ops."""
+    r = rng.random(WIDTH)
+    keys = rng.integers(0, UNIVERSE, WIDTH).astype(np.int32)
+    is_read = r < read
+    is_upd = (r >= read) & (r < read + update)
+    lookup = np.where(is_read, keys, key_max).astype(np.int32)
+    upd_k = np.where(is_upd, keys, key_max).astype(np.int32)
+    dels = rng.random(WIDTH) < 0.5
+    upd_v = np.where(dels, tombstone, keys % 1000 + 1).astype(np.int32)
+    return lookup, upd_k, upd_v, int(np.round(WIDTH * range_q))
+
+
+def _oracle_update(val, keys, vals, key_max: int, tombstone: int,
+                   not_found: int) -> None:
+    """One FlatStore batch on the dense host oracle: the last row of a
+    key wins, KEY_MAX rows are dropped, a tombstone deletes."""
+    live = keys != key_max
+    k, v = keys[live][::-1], vals[live][::-1]
+    k, first = np.unique(k, return_index=True)     # last row of each key
+    v = v[first]
+    val[k] = np.where(v == tombstone, not_found, v)
+
+
+def baseline_phase(api, rng, main: dict) -> None:
+    """``repro_torch.core.baseline`` on the card beside the main store:
+    a ``FlatStore`` of ``BASELINE_CAPACITY`` slots holding the main
+    phase's keys, then the fig8a/b/c and fig9b mixes as
+    ``benchmarks/workloads.py`` ``run_flat`` drives them (an update
+    batch, a lookup batch, the mix's validated range queries of 1000),
+    two warm-up and five timed bodies of 4 batches each, the slowest
+    dropped.  Every lookup and range answer against the host oracle;
+    the card's arrays against a CPU ``FlatStore`` fed the same batches,
+    bit for bit, in one untimed body of each mix."""
+    from repro_torch.core import baseline as BL
+    from repro_torch.kernels import _build
+
+    nf, tomb, key_max = api.NOT_FOUND, api.TOMBSTONE, api.KEY_MAX
+    val = main["oracle"].val.copy()
+    ks = np.nonzero(val != nf)[0].astype(np.int32)
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = BL.bulk_update(BL.create(BASELINE_CAPACITY), ks,
+                        val[ks].astype(np.int32))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(int(st.count) == len(ks), "baseline: the store did not load "
+                                    "the main phase's keys")
+
+    def flat_cpu(card):
+        return BL.FlatStore(card.keys.cpu(), card.vals.cpu(),
+                            card.count.cpu(), card.capacity)
+
+    def same_store(a, b) -> bool:
+        return (same(a.keys, b.keys) and same(a.vals, b.vals)
+                and int(a.count) == int(b.count))
+
+    def body(batches, starts, st, record, cpu=None):
+        k = 0
+        for lookup, upd_k, upd_v, n_rq in batches:
+            st = BL.bulk_update(st, upd_k, upd_v)
+            look = BL.bulk_lookup(st, lookup)
+            torch.cuda.synchronize()
+            ranges = []
+            for _ in range(n_rq):
+                lo = int(starts[k % len(starts)])
+                k += 1
+                ranges.append((lo, *BL.range_query_validated(
+                    lambda: st, lo, lo + RANGE_SIZE,
+                    max_results=BASELINE_MAX_RESULTS)))
+            record.append((upd_k, upd_v, lookup, look, ranges))
+            if cpu is not None:
+                cpu = BL.bulk_update(cpu, upd_k, upd_v)
+                check(same_store(st, cpu), "baseline: the card's FlatStore "
+                                           "differs from the CPU's")
+                check(same(look, BL.bulk_lookup(cpu, lookup)),
+                      "baseline: lookups differ from the CPU's")
+        return st
+
+    def verify(record, tag):
+        for upd_k, upd_v, lookup, look, ranges in record:
+            _oracle_update(val, upd_k, upd_v, key_max, tomb, nf)
+            want = np.where(lookup != key_max,
+                            val[np.minimum(lookup, UNIVERSE - 1)], nf)
+            check(np.array_equal(look.cpu().numpy(), want),
+                  f"baseline {tag}: a lookup differs from the oracle")
+            for lo, items, n_scans in ranges:
+                hi = min(lo + RANGE_SIZE, UNIVERSE - 1)
+                got = np.asarray(items, np.int64).reshape(-1, 2)
+                exp = np.nonzero(val[lo:hi + 1] != nf)[0] + lo
+                check(np.array_equal(got, np.stack([exp, val[exp]], 1)
+                                     if len(exp) else np.zeros((0, 2))),
+                      f"baseline {tag}: range [{lo}, {lo + RANGE_SIZE}] "
+                      "differs from the oracle")
+                scans.append(n_scans)
+
+    out = {}
+    for tag, (read, upd, rq) in BASELINE_MIXES.items():
+        batches = [baseline_batch(rng, read, upd, rq, key_max, tomb)
+                   for _ in range(BASELINE_ITERS)]
+        starts = rng.integers(0, UNIVERSE - RANGE_SIZE,
+                              max(1, BASELINE_ITERS * 8)).astype(np.int32)
+        scans = []
+        record = []
+        st = body(batches, starts, st, record, cpu=flat_cpu(st))
+        verify(record, tag)
+        secs = []
+        for rep in range(7):            # workloads.timed: 2 warm-up, 5
+            record = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = body(batches, starts, st, record)
+            torch.cuda.synchronize()
+            if rep >= 2:
+                secs.append(time.perf_counter() - t0)
+            verify(record, tag)
+        secs.sort()
+        per_batch = float(np.mean(secs[:-1])) / BASELINE_ITERS
+        out[tag] = dict(ops_per_s=WIDTH / per_batch,
+                        scans=float(np.mean(scans)) if scans else 0.0,
+                        ranges=len(scans))
+    live = int(st.count)
+    check(live == int((val != nf).sum()),
+          "baseline: the store's count differs from the oracle")
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    uruv = main["facts"]["n_ops"] / max(main["facts"]["apply_s"], 1e-9)
+    say("baseline", capacity=BASELINE_CAPACITY, keys=len(ks), live=live,
+        load_s=f"{load_s:.3f}", width=WIDTH,
+        **{f"{t}_ops_per_s": f"{o['ops_per_s']:.1f}" for t, o in out.items()},
+        fig9b_scans_per_range=f"{out['fig9b_r90_u5_rq5']['scans']:.3f}",
+        fig9b_ranges=out["fig9b_r90_u5_rq5"]["ranges"],
+        uruv_fig9b_ops_per_s=f"{uruv:.1f}",
+        cpu_equals_cuda="bit-equal",
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
 
 
 # ---------------------------------------------------------------------------
@@ -1731,13 +1924,17 @@ def lifecycle_phase(api, rng) -> None:
 
 class AttnRecorder:
     """Keeps the inputs of the widest flash / decode attention call the
-    model made (wrapping the names ``repro_torch.models.common`` calls)."""
+    model made (wrapping the names ``repro_torch.models.common`` calls),
+    and counts the calls, each under its kernel's name and, for a call
+    with a sliding window, under ``<name>:window`` too (whose widest
+    inputs it keeps apart)."""
 
     def __init__(self, common):
         self.common = common
         self.orig = {"flash_attention": common.attention,
                      "decode_attention": common.decode}
         self.calls = {}
+        self.n = {}
 
     def __enter__(self):
         self.common.attention = self._wrap("flash_attention",
@@ -1753,12 +1950,53 @@ class AttnRecorder:
     def _wrap(self, name, fn):
         def rec(*args, **kw):
             width = args[0].numel() * args[1].shape[-2]
-            if width >= self.calls.get(name, (0,))[0]:
-                # detached: a kept training input would keep its graph
-                self.calls[name] = (width, tuple(a.detach() for a in args),
-                                    kw)
+            windowed = (kw.get("window", 0) > 0 if name == "flash_attention"
+                        else len(args) > 4 and args[4] is not None)
+            for key in (name, f"{name}:window") if windowed else (name,):
+                self.n[key] = self.n.get(key, 0) + 1
+                if width >= self.calls.get(key, (0,))[0]:
+                    # detached: a kept training input would keep its graph
+                    self.calls[key] = (width, tuple(
+                        None if a is None else a.detach() for a in args), kw)
             return fn(*args, **kw)
         return rec
+
+
+def timed_calls(fn, out: list):
+    """``fn``, appending each call's ms (host clock, synchronized on both
+    sides) to ``out``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+        return r
+    return run
+
+
+def check_table(api, plans, view, eng, tag: str) -> None:
+    """The prefix table against a host dict replay of the engine's plans:
+    every answer, the final snapshot view, the snapshot released."""
+    table = {}
+    for plan, fut in plans:
+        want = []
+        for c, k, v in zip(plan.codes.tolist(), plan.keys.tolist(),
+                           plan.values.tolist()):
+            if c == api.OP_INSERT:
+                want.append(table.get(k, api.NOT_FOUND))
+                table[k] = v
+            elif c == api.OP_DELETE:
+                want.append(table.pop(k, api.NOT_FOUND))
+            elif c == api.OP_SEARCH:
+                want.append(table.get(k, api.NOT_FOUND))
+            else:
+                want.append(api.NOT_FOUND)
+        check(np.array_equal(fut.result().values, want),
+              f"{tag}: a prefix-table answer differs from the host dict")
+    check(view == sorted(table.items()), f"{tag}: snapshot_view differs "
+                                         "from the host dict")
+    check(eng.table.active_snapshots == 0, f"{tag}: snapshot not released")
 
 
 def serve_phase(args, rng) -> dict:
@@ -1787,19 +2025,9 @@ def serve_phase(args, rng) -> dict:
     eng.coalescer.submit = logged
 
     prefill_ms, decode_ms = [], []
-
-    def timed(fn, out):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t) * 1e3)
-            return r
-        return run
     orig_prefill = transformer.prefill
-    transformer.prefill = timed(orig_prefill, prefill_ms)
-    eng._decode = timed(eng._decode, decode_ms)
+    transformer.prefill = timed_calls(orig_prefill, prefill_ms)
+    eng._decode = timed_calls(eng._decode, decode_ms)
 
     # wave 1: four conversations sharing the system prompt; the first
     # goes through prefill, the others copy its 256 cached rows.  wave 2:
@@ -1838,26 +2066,7 @@ def serve_phase(args, rng) -> dict:
     wall_s = time.perf_counter() - t0
     counts = dict(_build.launch_counts)
 
-    # the prefix table against a host dict replay of the engine's plans
-    table = {}
-    for plan, fut in plans:
-        want = []
-        for c, k, v in zip(plan.codes.tolist(), plan.keys.tolist(),
-                           plan.values.tolist()):
-            if c == api.OP_INSERT:
-                want.append(table.get(k, api.NOT_FOUND))
-                table[k] = v
-            elif c == api.OP_DELETE:
-                want.append(table.pop(k, api.NOT_FOUND))
-            elif c == api.OP_SEARCH:
-                want.append(table.get(k, api.NOT_FOUND))
-            else:
-                want.append(api.NOT_FOUND)
-        check(np.array_equal(fut.result().values, want),
-              "serve: a prefix-table answer differs from the host dict")
-    check(view == sorted(table.items()), "serve: snapshot_view differs "
-                                         "from the host dict")
-    check(eng.table.active_snapshots == 0, "serve: snapshot not released")
+    check_table(api, plans, view, eng, "serve")
     reqs = waves[0] + waves[1]
     check(all(r.done and len(r.out) == 32 for r in reqs),
           "serve: a request did not finish")
@@ -1895,13 +2104,126 @@ def serve_phase(args, rng) -> dict:
     return dict(counts=counts, calls=rec.calls)
 
 
+def serve_gemma3_phase(args, rng) -> dict:
+    """gemma3-1b at its published width through the same engine: 4 slots,
+    ``max_len`` 2048, two waves of 4 requests, each a shared
+    ``GEMMA_SYSTEM``-token system prompt and ``GEMMA_OWN`` tokens of its
+    own, ``GEMMA_NEW`` new tokens each.  Decode lengths run past the local
+    layers' window of 1024, so the window cuts in prefill and in decode;
+    the decode kernel's windowed calls are counted apart.  The prefix
+    table's every answer against the host dict, as in ``serve``."""
+    import repro_torch.api as api
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    # the llama engine of phase serve holds itself in a cycle (its wrapped
+    # _decode): free it first, so the peak is gemma3's alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serve.build_engine("gemma3_1b", seed=args.seed, slots=4,
+                             max_len=GEMMA_MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
+    plans = []
+    submit = eng.coalescer.submit
+
+    def logged(plan):
+        fut = submit(plan)
+        plans.append((plan, fut))
+        return fut
+    eng.coalescer.submit = logged
+    prefill_ms, decode_ms, decode_lens = [], [], []
+    decode = timed_calls(eng._decode, decode_ms)
+
+    def logged_decode(tokens):
+        decode_lens.append(int(eng.lengths.max()))
+        return decode(tokens)
+    eng._decode = logged_decode
+    orig_prefill = transformer.prefill
+    transformer.prefill = timed_calls(orig_prefill, prefill_ms)
+
+    system = rng.integers(0, cfg.vocab, GEMMA_SYSTEM).tolist()
+    waves = [[serve.Request(
+        rid=w * 4 + i, max_new=GEMMA_NEW,
+        prompt=system + rng.integers(0, cfg.vocab, GEMMA_OWN).tolist())
+        for i in range(4)] for w in range(2)]
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with AttnRecorder(common) as rec:
+            for wave in waves:
+                eng.run(wave)
+            view = eng.snapshot_view()
+        torch.cuda.synchronize()
+    finally:
+        transformer.prefill = orig_prefill
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    check_table(api, plans, view, eng, "serve-gemma3")
+    reqs = waves[0] + waves[1]
+    check(all(r.done and len(r.out) == GEMMA_NEW for r in reqs),
+          "serve-gemma3: a request did not finish")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "serve-gemma3: a token outside the vocabulary")
+    check(waves[0][0].prefix_reused == 0 and len(prefill_ms) >= 1,
+          "serve-gemma3: the first request did not go through prefill")
+    check(all(r.prefix_reused >= GEMMA_SYSTEM for r in waves[0][1:]),
+          "serve-gemma3: a first-wave request did not reuse the system "
+          "prompt")
+    check(max(decode_lens) > cfg.window,
+          f"serve-gemma3: decode lengths reach {max(decode_lens)}, not "
+          f"past the window of {cfg.window}")
+    for name in SERVE_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the serve-gemma3 path")
+    for name in ("flash_attention", "decode_attention"):
+        check(rec.n.get(name) == counts.get(name)
+              and rec.n.get(f"{name}:window", 0) > 0,
+              f"serve-gemma3: {name} ran {rec.n} times through the model, "
+              f"{counts.get(name)} launches, none windowed?")
+    new_tokens = sum(len(r.out) for r in reqs)
+    say("serve-gemma3", model=cfg.name, layers=cfg.n_layers, d=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim,
+        vocab=cfg.vocab, window=cfg.window, global_every=cfg.global_every,
+        params=n_params, requests=len(reqs), build_s=f"{build_s:.3f}",
+        wall_s=f"{wall_s:.3f}", new_tokens=new_tokens,
+        tokens_per_s=f"{new_tokens / wall_s:.2f}",
+        prefills=len(prefill_ms),
+        prefill_ms_per_prompt=f"{np.mean(prefill_ms):.3f}",
+        decode_calls=len(decode_ms),
+        decode_ms_per_step=f"{np.mean(decode_ms):.3f}",
+        decode_lengths=f"{min(decode_lens)}-{max(decode_lens)}",
+        reused=json.dumps([r.prefix_reused for r in reqs]).replace(" ", ""),
+        max_memory_allocated_mib=(
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f}"),
+        table_entries=len(view),
+        windowed_calls=json.dumps({k: v for k, v in rec.n.items()
+                                   if k.endswith(":window")}
+                                  ).replace(" ", ""),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    return dict(counts=counts, calls=rec.calls, n=rec.n)
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the model on the CPU and on the card, same weights
 # ---------------------------------------------------------------------------
 
 def model_cpu_equals_cuda(args) -> None:
-    """llama3.2-1b at full width, 2 layers: prefill + 8 teacher-forced
-    decode steps on both devices from the same weights.
+    """llama3.2-1b and gemma3-1b at full width, 2 layers each: prefill +
+    8 teacher-forced decode steps on both devices from the same weights.
+    llama3.2-1b prefills 16 tokens; gemma3-1b (``global_every=2``: layer 0
+    local with its window of 1024, layer 1 global) prefills
+    ``GEMMA_PREFILL`` tokens, so its local layer's decode starts move from
+    row 77 to 84.  Compared: the prefill's last row and every decode
+    step's logits (the full-vocabulary logits of every prompt row are not
+    compared).
 
     fp32 (compute and KV cache) holds the algorithm: CPU and card agree
     within atol = rtol = ``FP32_TOL``.  bf16, the serving dtype, is held
@@ -1914,56 +2236,72 @@ def model_cpu_equals_cuda(args) -> None:
     from repro_torch.config import get_arch
     from repro_torch.models import transformer as TT
 
-    base = dataclasses.replace(get_arch("llama3_2_1b"), n_layers=2)
-    params = TT.init(base, torch.Generator().manual_seed(args.seed))
-    rng = np.random.default_rng(args.seed + 2)
-    toks = rng.integers(0, base.vocab, (2, 24)).astype(np.int32)
-    S0, Smax = 16, 32
-
     def to(tree, dev):
         if isinstance(tree, dict):
             return {k: to(v, dev) for k, v in tree.items()}
         return tree.to(dev)
 
-    def logits_on(cfg, dev):
-        cache_dtype = (torch.float32 if cfg.compute_dtype == "float32"
-                       else torch.bfloat16)
-        p = to(params, dev)
-        logits, cache = TT.prefill(cfg, p, toks[:, :S0], Smax, cache_dtype)
-        steps = [logits[:, -1]]
-        lens = np.full(2, S0, np.int32)
-        for t in range(S0, S0 + 8):
-            lg, cache = TT.decode_step(cfg, p, toks[:, t], cache, lens)
-            lens += 1
-            steps.append(lg)
-        return torch.stack(steps).float().cpu().numpy()
+    for arch, S0, extra in (("llama3_2_1b", 16, {}),
+                            ("gemma3_1b", GEMMA_PREFILL,
+                             {"global_every": 2})):
+        base = dataclasses.replace(get_arch(arch), n_layers=2, **extra)
+        params = TT.init(base, torch.Generator().manual_seed(args.seed))
+        rng = np.random.default_rng(args.seed + 2)
+        toks = rng.integers(0, base.vocab, (2, S0 + 8)).astype(np.int32)
+        Smax = S0 + 16 if arch == "llama3_2_1b" else S0 + 8
 
-    out = {}
-    for cdt in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(base, compute_dtype=cdt)
-        for dev in ("cpu", "cuda"):
-            out[cdt, dev] = logits_on(cfg, dev)
-            check(np.isfinite(out[cdt, dev]).all(),
-                  f"cpu==cuda model: non-finite {cdt} logits on {dev}")
-    ref = out["float32", "cpu"]
-    err32 = float(np.abs(out["float32", "cuda"] - ref).max())
-    check(np.allclose(out["float32", "cuda"], ref, atol=FP32_TOL,
-                      rtol=FP32_TOL),
-          f"cpu==cuda model: fp32 logits differ (max abs {err32:.3e})")
-    spread_cpu = float(np.abs(out["bfloat16", "cpu"] - ref).max())
-    spread_cuda = float(np.abs(out["bfloat16", "cuda"] - ref).max())
-    check(spread_cuda <= BF16_SPREAD * spread_cpu,
-          f"cpu==cuda model: the card's bf16 logits stand {spread_cuda:.3e} "
-          f"from fp32, more than {BF16_SPREAD}x the CPU's {spread_cpu:.3e}")
-    err16 = float(np.abs(out["bfloat16", "cuda"]
-                         - out["bfloat16", "cpu"]).max())
-    say("cpu==cuda-model", model=base.name, layers=base.n_layers,
-        logits=ref.size, max_abs_err_fp32=f"{err32:.3e}",
-        gate_fp32=f"atol=rtol={FP32_TOL}",
-        bf16_cpu_from_fp32=f"{spread_cpu:.3e}",
-        bf16_cuda_from_fp32=f"{spread_cuda:.3e}",
-        gate_bf16=f"cuda<={BF16_SPREAD}x_cpu",
-        max_abs_err_bf16=f"{err16:.3e}")
+        def logits_on(cfg, dev):
+            cache_dtype = (torch.float32 if cfg.compute_dtype == "float32"
+                           else torch.bfloat16)
+            p = to(params, dev)
+            logits, cache = TT.prefill(cfg, p, toks[:, :S0], Smax,
+                                       cache_dtype)
+            steps = [logits[:, -1].float().cpu()]
+            del logits
+            lens = np.full(2, S0, np.int32)
+            for t in range(S0, S0 + 8):
+                lg, cache = TT.decode_step(cfg, p, toks[:, t], cache, lens)
+                lens += 1
+                steps.append(lg.float().cpu())
+            return torch.stack(steps).numpy()
+
+        out = {}
+        for cdt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=cdt)
+            for dev in ("cpu", "cuda"):
+                out[cdt, dev] = logits_on(cfg, dev)
+                check(np.isfinite(out[cdt, dev]).all(),
+                      f"cpu==cuda model: non-finite {cdt} logits of "
+                      f"{base.name} on {dev}")
+        ref = out["float32", "cpu"]
+        err32 = float(np.abs(out["float32", "cuda"] - ref).max())
+        check(np.allclose(out["float32", "cuda"], ref, atol=FP32_TOL,
+                          rtol=FP32_TOL),
+              f"cpu==cuda model: {base.name} fp32 logits differ (max abs "
+              f"{err32:.3e})")
+        spread_cpu = float(np.abs(out["bfloat16", "cpu"] - ref).max())
+        spread_cuda = float(np.abs(out["bfloat16", "cuda"] - ref).max())
+        check(spread_cuda <= BF16_SPREAD * spread_cpu,
+              f"cpu==cuda model: {base.name}: the card's bf16 logits stand "
+              f"{spread_cuda:.3e} from fp32, more than {BF16_SPREAD}x the "
+              f"CPU's {spread_cpu:.3e}")
+        err16 = float(np.abs(out["bfloat16", "cuda"]
+                             - out["bfloat16", "cpu"]).max())
+        windows = TT.layer_windows(base).tolist()
+        w = max(windows)     # the local layers' decode starts, first to last
+        say("cpu==cuda-model", model=base.name, layers=base.n_layers,
+            windows=json.dumps(windows).replace(" ", ""), prefill=S0,
+            decode_steps=8, local_decode_starts=(
+                f"{max(0, S0 + 1 - w)}-{max(0, S0 + 8 - w)}" if w
+                else "none"),
+            logits=ref.size, max_abs_err_fp32=f"{err32:.3e}",
+            gate_fp32=f"atol=rtol={FP32_TOL}",
+            bf16_cpu_from_fp32=f"{spread_cpu:.3e}",
+            bf16_cuda_from_fp32=f"{spread_cuda:.3e}",
+            gate_bf16=f"cuda<={BF16_SPREAD}x_cpu",
+            max_abs_err_bf16=f"{err16:.3e}")
+        del params, out
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1977,6 +2315,28 @@ def _grad_err(got, want) -> float:
     scale = max(float(w.float().abs().max()) for w in want) or 1.0
     return max(float((g.float() - w.float()).abs().max())
                for g, w in zip(got, want)) / scale
+
+
+def attention_f64(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """The twin's arithmetic (``attention_ref``) in float64 on the CPU:
+    the yardstick both fp32 sides are read against."""
+    q, k, v = (t.detach().cpu().double() for t in (q, k, v))
+    B, H, Sq, D = q.shape
+    Skv, group = k.shape[2], H // k.shape[1]
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q / D ** 0.5, kx)
+    qi = torch.arange(Sq)[:, None]
+    ki = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= qi - ki < window
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx) / torch.where(l == 0, 1.0,
+                                                                 l)
 
 
 def attention_bwd_phase(dev) -> None:
@@ -2082,6 +2442,15 @@ def attention_bwd_phase(dev) -> None:
         differ += not (torch.equal(o, o0) and torch.equal(lse, l0))
     check(differ == 0, f"attention-bwd: {differ} of {FWD_REPEATS} fp32 "
                        f"forward calls differ from the first")
+    # which side is right: the card's output and the CPU twin's, each
+    # against the twin's arithmetic in float64
+    ref64 = attention_f64(q, k, v, causal=True, window=24)
+    cpu32 = attention_ref(q.cpu(), k.cpu(), v.cpu(), causal=True, window=24)
+    err64 = {"card": float((o0.cpu().double() - ref64).abs().max()),
+             "cpu": float((cpu32.double() - ref64).abs().max())}
+    check(max(err64.values()) <= FP32_ATTN_TOL,
+          f"attention-bwd: the fp32 forward stands {err64} from float64 "
+          f"(gate {FP32_ATTN_TOL})")
     # rows with no unmasked key: a window past the kv length
     q, k, v, do = (torch.randn(s, generator=g).to(dev) for s in
                    ((1, 4, 16, 64), (1, 2, 4, 64), (1, 2, 4, 64),
@@ -2103,6 +2472,8 @@ def attention_bwd_phase(dev) -> None:
         bf16_route=",".join(f"D{d}:{r}" for d, r in served.items()),
         train_shape_bit_identical=bit_same,
         fp32_forward_repeats=FWD_REPEATS, fp32_forward_differ=differ,
+        fp32_forward_card_from_f64=f"{err64['card']:.3e}",
+        fp32_forward_cpu_from_f64=f"{err64['cpu']:.3e}",
         max_err_of_max_grad_fp32=f"{worst[str(torch.float32)][0]:.3e}",
         max_err_of_max_grad_bf16=f"{worst[str(torch.bfloat16)][0]:.3e}",
         gate=f"fp32<={BWD_TOL[torch.float32]},bf16<="
@@ -2735,13 +3106,13 @@ def durability_phase(args, api, rng, card: str,
 # phase 10 (attention): the two attention kernels at the serve path's inputs
 # ---------------------------------------------------------------------------
 
-def attention_report(serve, train, train_serve) -> list:
-    """The two attention kernels at the widest inputs the serve path gave
-    them, and the flash backward at the train phase's; ``library_ms`` is
-    one ``scaled_dot_product_attention`` call on the same inputs (GQA, and
-    for decode q as one row with a length mask), for the backward SDPA's
-    backward through autograd.  ``launches`` adds the serve path's, the
-    train phase's and the train-serve phase's (``launches_by``)."""
+def attention_reading(name: str, a: tuple, kw: dict, launches_by: dict,
+                      reading: str) -> dict:
+    """One attention kernel's row at one call's inputs: parity with its
+    twin (in the inputs' dtype and in fp32), ``ms``, ``device_ms``, the
+    twin's time, the bound over the pairs the mask keeps (decode: the
+    cache rows read), and one ``scaled_dot_product_attention`` call with
+    the same mask (GQA; for decode q as one row)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.decode_attention import (
@@ -2751,106 +3122,144 @@ def attention_report(serve, train, train_serve) -> list:
         flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    if name == "flash_attention":
+        q, k, v = (t.contiguous() for t in a[:3])
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+
+        def run(q=q, k=k, v=v):
+            return flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain(q=q, k=k, v=v):
+            return attention_ref(q, k, v, causal=causal, window=window)
+        B, H, Sq, D = q.shape
+        KVH, Skv = k.shape[1], k.shape[2]
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        ki = torch.arange(Skv, device=q.device)[None, :]
+        ok = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= qi >= ki
+        if window > 0:
+            ok &= qi - ki < window
+        pairs = int(ok.sum()) * B * H
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) \
+            * q.element_size()
+        shape = (f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D},"
+                 f"causal={causal},window={window}")
+
+        def lib(q=q, k=k, v=v):
+            if window > 0:
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=ok, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+    else:
+        q, k, v, lens = (t.contiguous() for t in a[:4])
+        starts = a[4] if len(a) > 4 else None
+
+        def run(q=q, k=k, v=v, lens=lens):
+            return decode_attention(q, k, v, lens, starts=starts)
+
+        def plain(q=q, k=k, v=v, lens=lens):
+            return decode_attention_ref(q, k, v, lens, starts=starts)
+        B, H, D = q.shape
+        KVH, S = k.shape[1], k.shape[2]
+        lo = (torch.zeros_like(lens) if starts is None
+              else starts.clamp(0, S))
+        n_rows = int((lens.clamp(0, S) - lo).clamp_min(0).sum())
+        pairs = n_rows * H
+        nbytes = (2 * q.numel() + 2 * n_rows * KVH * D) \
+            * q.element_size() + 4 * B * (1 if starts is None else 2) \
+            + 8 * B * H
+        rows = torch.arange(S, device=q.device)[None, :]
+        keep = (rows < lens[:, None]) & (rows >= lo[:, None])
+        shape = (f"B={B},H={H},KVH={KVH},S={S},D={D},"
+                 f"window={'no' if starts is None else 'yes'},"
+                 f"rows_read={n_rows}")
+        mask = keep[:, None, None, :]
+
+        def lib(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    got, want = run(), plain()
+    err = float((got.float() - want.float()).abs().max())
+    # both round the same fp32 result to q's dtype: in bf16 they may
+    # part by one rounding step, in fp32 by summation order only
+    atol, rtol = ((1e-5, BF16_ULP) if q.dtype == torch.bfloat16
+                  else (2e-5, 2e-5))
+    check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+          f"{name} ({reading}) != plain at its path's inputs (max abs "
+          f"{err})")
+    # the same inputs in fp32 hold the fp32 tolerance
+    if name == "flash_attention":
+        a32 = [t.float() for t in (q, k, v)]
+        g32 = flash_attention(*a32, causal=causal, window=window)
+        w32 = attention_ref(*a32, causal=causal, window=window)
+    else:
+        a32 = [t.float() for t in (q, k, v)] + [lens]
+        g32 = decode_attention(*a32, starts=starts)
+        w32 = decode_attention_ref(*a32, starts=starts)
+    err32 = float((g32 - w32).abs().max())
+    check(torch.allclose(g32, w32, atol=2e-5, rtol=2e-5),
+          f"{name} ({reading}) != plain in fp32 (max abs {err32})")
+    ms = time_ms(run)
+    dev_ms, dev_by = device_ms(run)
+    plain_ms = time_ms(plain, iters=5)
+    library_ms = time_ms(lib)
+    library_dev_ms, library_dev_by = device_ms(lib)
+    flops = 4 * pairs * D
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / BF16_TC_FLOPS * 1e3
+    src, replaces = KERNELS[name]
+    row = dict(
+        name=name, reading=reading, shape=shape, route="cuda", source=src,
+        replaces=replaces, launches=sum(launches_by.values()),
+        launches_by=launches_by, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        device_ms_by=dev_by, plain_ms=plain_ms,
+        bound_ms=max(bound_bytes, bound_ops),
+        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        library_ms=library_ms, library_device_ms=library_dev_ms,
+        library_device_ms_by=library_dev_by)
+    say("kernel", name=name, reading=reading.replace(" ", "_"), shape=shape,
+        dtype=str(q.dtype), ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}",
+        device_ms_by=dev_by, plain_ms=f"{plain_ms:.5f}",
+        bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
+        library_ms=f"{library_ms:.5f}",
+        library_device_ms=f"{library_dev_ms:.5f}",
+        library_device_ms_by=library_dev_by, max_abs_err=f"{err:.3e}",
+        max_abs_err_fp32=f"{err32:.3e}",
+        launches=json.dumps(launches_by).replace(" ", ""))
+    return row
+
+
+def attention_report(serve, gemma, train, train_serve) -> list:
+    """The two attention kernels at the widest inputs the llama3.2-1b serve
+    path gave them (``launches`` adds the serve, serve-gemma3, train and
+    train-serve phases', ``launches_by``); their second readings at
+    gemma3-1b's (the windowed prefill; the decode with its window and, on
+    the same inputs, without it: a global layer's call), each with the
+    serve-gemma3 phase's launches of that variant; and the flash backward
+    at the train phase's inputs."""
     rows = []
     for name in ("flash_attention", "decode_attention"):
         _, a, kw = serve["calls"][name]
-        if name == "flash_attention":
-            q, k, v = (t.contiguous() for t in a)
-            causal, window = kw.get("causal", True), kw.get("window", 0)
-
-            def run(q=q, k=k, v=v):
-                return flash_attention(q, k, v, causal=causal, window=window)
-
-            def plain(q=q, k=k, v=v):
-                return attention_ref(q, k, v, causal=causal, window=window)
-            B, H, Sq, D = q.shape
-            KVH, Skv = k.shape[1], k.shape[2]
-            qi = torch.arange(Sq)[:, None]
-            ki = torch.arange(Skv)[None, :]
-            ok = torch.ones(Sq, Skv, dtype=torch.bool)
-            if causal:
-                ok &= qi >= ki
-            if window > 0:
-                ok &= qi - ki < window
-            pairs = int(ok.sum()) * B * H
-            nbytes = (q.numel() * 2 + k.numel() + v.numel()) \
-                * q.element_size()
-            shape = f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D}"
-
-            def lib(q=q, k=k, v=v):
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True)
-        else:
-            q, k, v, lens = (t.contiguous() for t in a)
-
-            def run(q=q, k=k, v=v, lens=lens):
-                return decode_attention(q, k, v, lens)
-
-            def plain(q=q, k=k, v=v, lens=lens):
-                return decode_attention_ref(q, k, v, lens)
-            B, H, D = q.shape
-            KVH, S = k.shape[1], k.shape[2]
-            n_rows = int(lens.clamp(0, S).sum())
-            pairs = n_rows * H
-            nbytes = (2 * q.numel() + 2 * n_rows * KVH * D) \
-                * q.element_size() + 4 * B + 8 * B * H
-            shape = f"B={B},H={H},KVH={KVH},S={S},D={D}"
-            mask = (torch.arange(S, device=q.device)[None, :]
-                    < lens[:, None])[:, None, None, :]
-
-            def lib(q=q, k=k, v=v, mask=mask):
-                return F.scaled_dot_product_attention(
-                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
-        got, want = run(), plain()
-        err = float((got.float() - want.float()).abs().max())
-        # both round the same fp32 result to q's dtype: in bf16 they may
-        # part by one rounding step, in fp32 by summation order only
-        atol, rtol = ((1e-5, BF16_ULP) if q.dtype == torch.bfloat16
-                      else (2e-5, 2e-5))
-        check(torch.allclose(got.float(), want.float(), atol=atol,
-                             rtol=rtol),
-              f"{name} != plain at the serve path's inputs (max abs {err})")
-        # the same inputs in fp32 hold the fp32 tolerance
-        a32 = [t.float() if t.is_floating_point() else t
-               for t in (q, k, v) + (() if name == "flash_attention"
-                                     else (lens,))]
-        if name == "flash_attention":
-            g32 = flash_attention(*a32, causal=causal, window=window)
-            w32 = attention_ref(*a32, causal=causal, window=window)
-        else:
-            g32, w32 = decode_attention(*a32), decode_attention_ref(*a32)
-        err32 = float((g32 - w32).abs().max())
-        check(torch.allclose(g32, w32, atol=2e-5, rtol=2e-5),
-              f"{name} != plain in fp32 (max abs {err32})")
-        ms = time_ms(run)
-        dev_ms, dev_by = device_ms(run)
-        plain_ms = time_ms(plain, iters=5)
-        library_ms = time_ms(lib)
-        library_dev_ms, library_dev_by = device_ms(lib)
-        flops = 4 * pairs * D
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flops / BF16_TC_FLOPS * 1e3
-        src, replaces = KERNELS[name]
         by = {phase: res["counts"].get(name, 0) for phase, res in
-              (("serve", serve), ("train", train),
+              (("serve", serve), ("serve-gemma3", gemma), ("train", train),
                ("train-serve", train_serve))}
-        rows.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=sum(by.values()), launches_by=by, max_abs_err=err,
-            ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
-            bound_ms=max(bound_bytes, bound_ops),
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            library_ms=library_ms, library_device_ms=library_dev_ms,
-            library_device_ms_by=library_dev_by))
-        say("kernel", name=name, shape=shape, dtype=str(q.dtype),
-            ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
-            plain_ms=f"{plain_ms:.5f}",
-            bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
-            library_ms=f"{library_ms:.5f}",
-            library_device_ms=f"{library_dev_ms:.5f}",
-            library_device_ms_by=library_dev_by,
-            max_abs_err=f"{err:.3e}",
-            max_abs_err_fp32=f"{err32:.3e}")
+        rows.append(attention_reading(name, a, kw, by, "llama3.2-1b serve"))
+    _, a, kw = gemma["calls"]["flash_attention:window"]
+    rows.append(attention_reading(
+        "flash_attention", a, kw,
+        {"serve-gemma3": gemma["n"]["flash_attention:window"]},
+        "gemma3-1b prefill, window 1024"))
+    _, a, kw = gemma["calls"]["decode_attention:window"]
+    n_win = gemma["n"]["decode_attention:window"]
+    rows.append(attention_reading(
+        "decode_attention", a, kw, {"serve-gemma3": n_win},
+        "gemma3-1b decode, window 1024"))
+    rows.append(attention_reading(
+        "decode_attention", a[:4], kw,
+        {"serve-gemma3": gemma["n"]["decode_attention"] - n_win},
+        "gemma3-1b decode, no window"))
     rows.append(attention_bwd_report(train, train_serve))
     return rows
 
@@ -3013,6 +3422,9 @@ def main() -> int:
     parity_edge_cases(rng, np.random.default_rng(args.seed + 3),
                       torch.device("cuda"))
     main_res = main_path(args, api, rng)
+    # baseline and serve-gemma3 draw from generators of their own: every
+    # other phase sees the same draws with or without them
+    baseline_phase(api, np.random.default_rng(args.seed + 21), main_res)
     profile_plans(main_res.pop("db"), api, rng)
     sharded_res = sharded_phase(args, api)
     cpu_equals_cuda(args, api)
@@ -3024,6 +3436,8 @@ def main() -> int:
                         make_host_mesh(SHARDS, device=dev)))
     lifecycle_phase(api, rng)
     serve_res = serve_phase(args, rng)
+    gemma_res = serve_gemma3_phase(args,
+                                   np.random.default_rng(args.seed + 22))
     model_cpu_equals_cuda(args)
     attention_bwd_phase(torch.device("cuda"))
     train_res = train_phase(args)
@@ -3035,7 +3449,8 @@ def main() -> int:
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))
     lat = latencies(torch.device("cuda"))
     rows = (kernel_report(main_res, lat["hbm"])
-            + attention_report(serve_res, train_res, train_serve_res)
+            + attention_report(serve_res, gemma_res, train_res,
+                               train_serve_res)
             + search_positions_report(main_res, api, rng, lat["l2"]))
     for row in rows:
         row["sharded_launches"] = sharded_res["counts"].get(row["name"], 0)

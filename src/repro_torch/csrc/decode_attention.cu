@@ -36,10 +36,20 @@
 //     / (l or 1); splits with l_i = 0 (empty) are left out.  With one
 //     split the first kernel writes the result itself.
 //
+//   - Sliding window.  With a `starts` array (gemma3's local layers) a
+//     sequence attends to rows [starts[b], lengths[b]) only.  The kernel
+//     reads starts[b] on the card, as it reads lengths[b]: a block's rows
+//     are its chunk cut to that interval, so a split wholly below the
+//     window takes the empty-chunk exit and loads nothing, and the first
+//     live tile simply starts at starts[b] (rows are staged one by one, so
+//     an unaligned start needs no mask).  The window is a template
+//     variant (kWindow): without `starts` the kernel is the code it was.
+//
 // Edge conventions follow the TPU kernel: masked scores are NEG_INF =
-// -1e30, masked probabilities 0, a sequence of length 0 writes 0 with
-// m = NEG_INF and l = 0 (also when every split is empty), and a length
-// past S counts as S.
+// -1e30, masked probabilities 0, a sequence with no row (length 0, or a
+// window start at or past its length) writes 0 with m = NEG_INF and l = 0
+// (also when every split is empty), a length past S counts as S and a
+// negative start as 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,12 +182,13 @@ size_t smem_bytes(int G, int Dp) {
          sizeof(float) * (2 * G * Dp + G * kTR + 3 * G);
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ lengths,
-             T* __restrict__ out, float* __restrict__ m_out,
-             float* __restrict__ l_out, float* __restrict__ part, int H,
+             const int* __restrict__ starts, T* __restrict__ out,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ part, int H,
              int KVH, int S, int D, int chunk, int async, float scale) {
   constexpr int kVec = 16 / sizeof(T);
   const int G = H / KVH;
@@ -197,7 +208,10 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_splits = gridDim.x, B = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(lengths[b], 0), S);
-  const int r_begin = split * chunk, r_end = min(r_begin + chunk, len);
+  // rows of this split: its chunk, cut to [starts[b], len)
+  const int c0 = split * chunk;
+  const int r_begin = kWindow ? max(c0, starts[b]) : c0;
+  const int r_end = min(c0 + chunk, len);
   const size_t bh0 = static_cast<size_t>(b) * H + kh * G;  // first q head
   // partials: acc [B*H][n_splits][D], then m and l [B*H][n_splits]
   float* pacc = part;
@@ -378,13 +392,17 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ out,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, float* m, float* l, float* part, int B, int H, int KVH,
-           int S, int D, int chunk, int n_splits, cudaStream_t stream) {
+           const int* starts, void* out, float* m, float* l, float* part,
+           int B, int H, int KVH, int S, int D, int chunk, int n_splits,
+           cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int G = H / KVH;
   const int Dp = (D + kVec - 1) / kVec * kVec;
   const size_t smem = smem_bytes<T>(G, Dp);
-  auto kern = split_kernel<T>;
+  // the window only where it is asked for: the unwindowed kernel stays the
+  // code it was without one
+  auto kern = starts != nullptr ? split_kernel<T, true>
+                                : split_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -397,8 +415,9 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   const int async = D % kVec == 0 && aligned(k) && aligned(v);
   kern<<<dim3(n_splits, KVH, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), m, l, part, H,
-      KVH, S, D, chunk, async, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), lengths, starts, static_cast<T*>(out), m, l,
+      part, H, KVH, S, D, chunk, async,
+      1.0f / sqrtf(static_cast<float>(D)));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return static_cast<int>(e);
   combine_kernel<T><<<B * H, kThreads, sizeof(float) * n_splits, stream>>>(
@@ -411,22 +430,24 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  The
 // wrapper picks chunk and n_splits (n_splits * chunk >= S) from the shapes
 // and, when n_splits > 1, passes fp32 scratch of B*H*n_splits*(D + 2)
-// floats as `part`.
+// floats as `part`.  starts: null (no window), or int32 [B], the first
+// cache row each sequence attends to.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const int* lengths, void* out, float* m,
-                                float* l, float* part, int B, int H, int KVH,
-                                int S, int D, int chunk, int n_splits,
-                                int dtype, void* stream) {
+                                const int* lengths, const int* starts,
+                                void* out, float* m, float* l, float* part,
+                                int B, int H, int KVH, int S, int D,
+                                int chunk, int n_splits, int dtype,
+                                void* stream) {
   if (D < 1 || D > 256 || KVH < 1 || H % KVH != 0 || H / KVH > 32 ||
       chunk < 1 || n_splits < 1 || static_cast<long>(chunk) * n_splits < S ||
       (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, lengths, out, m, l, part, B, H, KVH, S, D,
-                         chunk, n_splits, s);
+    return launch<float>(q, k, v, lengths, starts, out, m, l, part, B, H,
+                         KVH, S, D, chunk, n_splits, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, out, m, l, part, B, H,
-                                 KVH, S, D, chunk, n_splits, s);
+    return launch<__nv_bfloat16>(q, k, v, lengths, starts, out, m, l, part,
+                                 B, H, KVH, S, D, chunk, n_splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,12 +8,15 @@ launches the kernel for a CUDA tensor and takes the plain twin in
 ``ref.py`` for a CPU tensor; any other device raises.  On the card the
 cache is split into chunks of rows (:func:`_split_schedule`), scored by
 separate blocks and combined by a second launch from the same C entry;
-one wrapper call counts once in ``launch_counts``.
+one wrapper call counts once in ``launch_counts``.  A sliding window
+(gemma3's local layers) is a per-sequence first row, ``starts``, that the
+kernel reads on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -23,8 +26,8 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _P),
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _P),
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -46,12 +49,16 @@ def _split_schedule(S: int, n_kv: int) -> tuple:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *, return_stats: bool = False):
+                     lengths: torch.Tensor, *,
+                     starts: Optional[torch.Tensor] = None,
+                     return_stats: bool = False):
     """q [B, H, D], k/v [B, KVH, S, D], lengths [B] int32 (a length past S
     counts as S) -> out [B, H, D] in q's dtype, plus ``m``, ``l`` [B, H, 1]
-    fp32 with ``return_stats``."""
+    fp32 with ``return_stats``.  ``starts`` [B] int32, when given, is each
+    sequence's first row (a sliding window): rows [starts[b], lengths[b])
+    are attended to."""
     if _build.device_type(q) == "cpu":
-        return decode_attention_ref(q, k, v, lengths,
+        return decode_attention_ref(q, k, v, lengths, starts=starts,
                                     return_stats=return_stats)
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"decode_attention: dtype {q.dtype} not in "
@@ -59,10 +66,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require("decode_attention", q.device, q.dtype, q=q, k=k, v=v)
     _build.require("decode_attention", q.device, torch.int32,
                    lengths=lengths)
+    if starts is not None:
+        _build.require("decode_attention", q.device, torch.int32,
+                       starts=starts)
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     if (k.shape != (B, KVH, S, D) or v.shape != k.shape or KVH < 1
             or H % KVH or H // KVH > MAX_GROUP or lengths.shape != (B,)
+            or (starts is not None and starts.shape != (B,))
             or not 1 <= D <= MAX_HEAD_DIM):
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -79,7 +90,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lib = _build.load("decode_attention", _SIGNATURES)
         _build.launch_counts["decode_attention"] += 1
         rc = lib.decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  lengths.data_ptr(), out.data_ptr(),
+                                  lengths.data_ptr(),
+                                  None if starts is None
+                                  else starts.data_ptr(), out.data_ptr(),
                                   m.data_ptr(), l.data_ptr(),
                                   None if part is None else part.data_ptr(),
                                   B, H, KVH, S, D, chunk, n_splits,

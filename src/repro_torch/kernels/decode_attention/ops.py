@@ -8,7 +8,12 @@ from repro_torch.kernels.decode_attention.decode_attention import (
 )
 
 
-def decode(q, k, v, lengths):
-    """q [B, H, D], k/v [B, KVH, S, D], lengths [B] -> [B, H, D]."""
+def decode(q, k, v, lengths, starts=None):
+    """q [B, H, D], k/v [B, KVH, S, D], lengths [B] -> [B, H, D];
+    ``starts`` [B] (a sliding window's first row of each sequence) or
+    None."""
+    if starts is not None:
+        starts = starts.to(q.device).int().contiguous()
     return decode_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            lengths.to(q.device).int().contiguous())
+                            lengths.to(q.device).int().contiguous(),
+                            starts=starts)

@@ -147,12 +147,10 @@ def attention_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 
     A row at ``lengths[b] == Smax`` is past the cache: its write is
     dropped (as the JAX scatter drops it) and the attention sees the whole
-    cache.  The inputs are not written into.
+    cache.  With ``window`` > 0 (a static int) the token attends to rows
+    ``kpos > lengths[b] - window`` only, the JAX rule.  The inputs are not
+    written into.
     """
-    if int(window) > 0:
-        raise NotImplementedError(
-            "windowed decode has no kernel yet (the TPU decode kernel has "
-            "no window): see ROADMAP.md, windowed decode (gemma3)")
     cdt = dtype_of(cfg.compute_dtype)
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.resolved_head_dim
@@ -175,7 +173,12 @@ def attention_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 
     # the kernel attends to rows < its length: this token's row included
     kv_len = (lengths + 1).clamp_max(Smax).int()
-    o = decode(q.to(cache_k.dtype), cache_k, cache_v, kv_len)
+    # and, in a window, to rows >= its start, from the unclamped length:
+    # at lengths == Smax (the write dropped) that keeps window - 1 rows,
+    # as the JAX mask does
+    starts = ((lengths + 1 - int(window)).clamp_min(0).int()
+              if int(window) > 0 else None)
+    o = decode(q.to(cache_k.dtype), cache_k, cache_v, kv_len, starts)
     o = o.reshape(B, H, hd).to(cdt)
     out = torch.einsum("bhk,hkd->bd", o, p["wo"].to(cdt))[:, None, :]
     return out.to(x.dtype), cache_k, cache_v

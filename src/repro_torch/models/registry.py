@@ -1,5 +1,7 @@
-"""Uniform model API of the port: the dense transformer family, plus the
-bridge that carries parameters between the port and the JAX package."""
+"""Uniform model API of the port: the dense transformer family (the
+served configs llama3.2-1b, qwen3-4b, olmo-1b and gemma3-1b, whose local
+layers take a sliding window in prefill and in decode), plus the bridge
+that carries parameters between the port and the JAX package."""
 
 from __future__ import annotations
 

@@ -743,6 +743,84 @@ def test_decode_attention_split_kv_edges(card, B, H, KVH, S, D, lens,
     _close(l, wl, 1e-4)
 
 
+WINDOW_LENS = (0, 33, 300, 511, 512, 700)   # empty, ..., full, past S
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("window", [1, 24, 100, 1024])
+def test_decode_attention_window_matches_twin(card, window, D, dtype):
+    """A sliding window: rows [starts[b], lengths[b]) with starts from
+    ``lengths - window``, at a window shorter than the length (starts 9,
+    200, 411, 600: not multiples of 32), longer than the cache (1024), of
+    1 row, at length 0, and at a length past S (its start past S too at
+    window 100: no row left)."""
+    B, H, KVH, S = len(WINDOW_LENS), 8, 2, 512
+    g = torch.Generator(device="cpu").manual_seed(window + D)
+    q = torch.randn(B, H, D, generator=g).to(card, dtype)
+    k = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    v = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    lens = torch.tensor(WINDOW_LENS, dtype=torch.int32, device=card)
+    starts = (lens - window).clamp_min(0).int()
+    n0 = _build.launch_counts["decode_attention"]
+    got, m, l = decode_attention(q, k, v, lens, starts=starts,
+                                 return_stats=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["decode_attention"] == n0 + 1
+    want, wm, wl = decode_attention_ref(q, k, v, lens, starts=starts,
+                                        return_stats=True)
+    empty = (starts >= lens.clamp(max=S)).cpu()
+    assert bool(empty[0]) and torch.all(got.cpu()[empty] == 0)
+    assert torch.all(l.cpu()[empty] == 0)
+    _close(got, want, TOL[dtype])
+    _close(m, wm, 1e-5)
+    _close(l, wl, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_window_at_gemma3_shape(card, dtype):
+    """gemma3-1b's decode: 4 q heads on 1 kv head, D 256, a 2048-row cache,
+    lengths 1,209-1,257 and a window of 1024 (starts 185-233), against
+    the twin and against the unwindowed kernel on the window's rows."""
+    B, H, KVH, S, D, W = 4, 4, 1, 2048, 256, 1024
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(B, H, D, generator=g).to(card, dtype)
+    k = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    v = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    lens = torch.tensor([1209, 1230, 1240, 1257], dtype=torch.int32,
+                        device=card)
+    starts = (lens - W).int()
+    got = decode_attention(q, k, v, lens, starts=starts)
+    want = decode_attention_ref(q, k, v, lens, starts=starts)
+    _close(got, want, TOL[dtype])
+    # the same rows moved to the front of a cache: the unwindowed kernel
+    for b in range(B):
+        s0 = int(starts[b])
+        kb, vb = k[b:b + 1, :, s0:], v[b:b + 1, :, s0:]
+        one = decode_attention(q[b:b + 1], kb.contiguous(), vb.contiguous(),
+                               torch.tensor([W], dtype=torch.int32,
+                                            device=card))
+        _close(got[b:b + 1], one, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_window_zero_is_unwindowed(card, dtype):
+    """Starts of 0 launch the windowed variant over every row: bit for bit
+    the unwindowed kernel's out, m and l (the split schedule and the row
+    order are the same)."""
+    B, H, KVH, S, D = 4, 32, 8, 512, 64
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q = torch.randn(B, H, D, generator=g).to(card, dtype)
+    k = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    v = torch.randn(B, KVH, S, D, generator=g).to(card, dtype)
+    lens = torch.tensor([0, 100, 481, 700], dtype=torch.int32, device=card)
+    plain = decode_attention(q, k, v, lens, return_stats=True)
+    zero = decode_attention(q, k, v, lens, starts=torch.zeros_like(lens),
+                            return_stats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(plain, zero))
+
+
 def test_attention_launch_counts(card):
     """Each wrapper call counts one launch, whatever the kernels it runs
     (decode's split kernel and its combine count once)."""

@@ -1,9 +1,13 @@
 """The port's dense transformer against the JAX package's, on the CPU.
 
-Reduced llama3.2-1b, qwen3-4b (qk-norm) and olmo-1b (non-parametric
-LayerNorm) get the JAX weights through ``params_from_numpy``; forward,
-``prefill`` and ``decode_step`` logits must agree at atol = rtol = 5e-3,
-the tolerance of ``tests/test_models_smoke.py``.  The decode path keeps
+Reduced llama3.2-1b, qwen3-4b (qk-norm), olmo-1b (non-parametric
+LayerNorm) and gemma3-1b (head_dim != d_model / n_heads, one kv head,
+gelu, embedding scaling, and a sliding window of 8 on its local layer:
+``global_every=2`` on both sides, so the two reduced layers are one local
+and one global) get the JAX weights through ``params_from_numpy``;
+forward, ``prefill`` and ``decode_step`` logits must agree at atol = rtol
+= 5e-3, the tolerance of ``tests/test_models_smoke.py``.  gemma3's
+prompts are longer than its window, so prefill and decode both cut it.  The decode path keeps
 its attention probabilities in fp32 where the JAX model rounds them to the
 cache's bf16 before the PV product — the one documented difference,
 inside that tolerance.
@@ -18,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.config import get_arch as j_get_arch
+from repro.models import common as JC
 from repro.models import transformer as JT
 from repro.models.registry import get_model as j_get_model
 
@@ -31,16 +36,26 @@ from _torch_port import (  # noqa: F401  (the fixtures: autouse)
 )
 pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
-ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b"]
+ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b", "gemma3_1b"]
 TOL = dict(atol=5e-3, rtol=5e-3)
+# prompt length S and cache length Smax: gemma3's prompt passes its
+# reduced window of 8
+SIZES = {"gemma3_1b": (12, 20)}
+
+
+def _reduced(arch, get):
+    cfg = get(arch).reduced()
+    if cfg.window:     # reduced gemma3 has 2 local layers: make one global
+        cfg = dataclasses.replace(cfg, global_every=2)
+    return cfg
 
 
 @pytest.fixture(scope="module")
 def models():
     out = {}
     for arch in ARCHS:
-        jcfg = j_get_arch(arch).reduced()
-        cfg = get_arch(arch).reduced()
+        jcfg = _reduced(arch, j_get_arch)
+        cfg = _reduced(arch, get_arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         jp = j_get_model(jcfg).init(jcfg, jax.random.key(1))
         out[arch] = (jcfg, cfg, jp,
@@ -57,7 +72,7 @@ def _close(t, j):
 def test_forward_prefill_decode_match_jax(models, arch):
     jcfg, cfg, jp, tp = models[arch]
     rng = np.random.default_rng(0)
-    B, S, Smax = 2, 8, 12
+    B, (S, Smax) = 2, SIZES.get(arch, (8, 12))
     toks = rng.integers(0, cfg.vocab, (B, S + 3)).astype(np.int32)
     jl, _ = JT.forward_train(jcfg, jp, jnp.asarray(toks[:, :S]))
     tl, aux = TT.forward_train(cfg, tp, toks[:, :S])
@@ -89,7 +104,7 @@ def test_prefill_then_decode_equals_step_decode(models, arch):
     last step equals the forward's last position."""
     _, cfg, _, tp = models[arch]
     rng = np.random.default_rng(1)
-    B, S = 2, 8
+    B, S = 2, SIZES.get(arch, (8, 12))[0]
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     full, _ = TT.forward_train(cfg, tp, toks)
     api = get_model(cfg)
@@ -127,15 +142,52 @@ def test_decode_at_a_full_cache_drops_the_write_like_jax(models):
     assert not torch.equal(tc2["k"][:, 1], tc["k"][:, 1])
 
 
+def test_windowed_decode_at_a_full_cache_matches_jax(models):
+    """lengths == Smax with a window: the write is dropped and the token
+    sees the window's last ``window - 1`` rows, as the JAX mask keeps
+    (``kpos > Smax - window``); beside it a row at Smax - 1."""
+    jcfg, cfg, jp, tp = models["gemma3_1b"]
+    rng = np.random.default_rng(3)
+    Smax = 10
+    toks = rng.integers(0, cfg.vocab, (2, Smax)).astype(np.int32)
+    _, jc = JT.prefill(jcfg, jp, jnp.asarray(toks), Smax)
+    _, tc = TT.prefill(cfg, tp, toks, Smax)
+    lens = np.array([Smax, Smax - 1], np.int32)
+    nt = np.array([5, 9], np.int32)
+    for _ in range(2):
+        jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(nt), jc,
+                                jnp.asarray(lens))
+        tl, tc = TT.decode_step(cfg, tp, nt, tc, lens)
+        _close(tl, jl)
+        lens = np.minimum(lens + 1, Smax)
+
+
 def test_windowed_decode_raises_and_registry_guards(models):
-    _, cfg, _, tp = models["llama3_2_1b"]
-    lp = TT.layer_params(tp, 0)
-    cache = TT.init_cache(cfg, 1, 4, device="cpu")
-    x = torch.zeros(1, 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.attention_decode(cfg, lp["attn"], x, cache["k"][0],
-                            cache["v"][0], torch.zeros(1, dtype=torch.int32),
-                            window=4)
+    """Windowed decode no longer raises: ``attention_decode`` with a
+    window matches the JAX one at lengths 0, inside the window, past it
+    and at a full cache.  The registry still refuses the families that
+    are not ported."""
+    jcfg, cfg, jp, tp = models["gemma3_1b"]
+    lp = TT.layer_params(tp, 0)["attn"]
+    jlp = jax.tree.map(lambda a: a[0], jp["layers"])["attn"]
+    rng = np.random.default_rng(4)
+    B, Smax, hd = 4, 9, cfg.resolved_head_dim
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    ck, cv = (rng.standard_normal((B, cfg.n_kv_heads, Smax, hd))
+              .astype(np.float32) for _ in range(2))
+    lens = np.array([0, 3, 7, Smax], np.int32)
+    for window in (4, 1, 12):
+        jo, jk, _ = JC.attention_decode(
+            jcfg, jlp, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv),
+            jnp.asarray(lens), window=window)
+        to, tk, _ = TC.attention_decode(
+            cfg, lp, torch.from_numpy(x), torch.from_numpy(ck),
+            torch.from_numpy(cv), torch.from_numpy(lens), window=window)
+        if window == 1:   # at Smax no row is left: JAX averages all rows
+            to, jo = to[:3], jo[:3]
+        _close(to, jo)
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5)
+    _, cfg, _, _ = models["llama3_2_1b"]
     moe = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, top_k=2,
                                                  d_expert=8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
