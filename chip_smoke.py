@@ -90,6 +90,26 @@ Phases, one line each (any failure exits non-zero):
                so the windowed prefill and the windowed decode kernel
                run (their calls counted apart); the prefix table against
                the host dict, tokens/s, prefill and decode ms, peak memory
+  7c. serve-olmoe  the same engine with olmoe-1b-7b at its published
+               width (16 layers, d 2048, 16 heads of 128, 64 experts
+               top-8 of d_expert 1024, vocab 50,304; 6.9 B parameters),
+               4 slots, max_len 512, two waves of 4 requests on a shared
+               256-token system prompt + 16 own tokens, 32 new tokens
+               each; the prefix table against the host dict, then a new
+               engine on the same weights serves the same stream and must
+               give the same tokens; tokens/s, prefill and decode ms,
+               peak memory, a decode step's mean ``moe_dropped``
+  7d. moe-deepseek  deepseek-moe-16b at its published width (28 layers,
+               2 shared + 64 routed experts top-6 of 1408; 16.7 B
+               parameters, 66.7 GB: its first 20 layers when the card's
+               free memory cannot hold them) through ``transformer.
+               prefill`` (256 tokens) and 16 greedy ``decode_step``s:
+               finite logits, launches, prefill and decode ms, peak memory
+  7e. vlm-internvl2  internvl2-76b at its published widths (d 8192, 64
+               heads on 8 kv heads of 128, ff 28,672, vocab 128,256, 256
+               patches of 3,200 features) cut to 8 of its 80 layers:
+               ``make_prefill_step`` on 256 patches + 256 tokens, twice;
+               finite logits of the right shape, ms, peak memory
   8. cpu==cuda model  llama3.2-1b and gemma3-1b at full width with 2
                layers each (gemma3: one local layer, window 1024, one
                global), the same weights on the CPU and on cuda: prefill
@@ -97,7 +117,14 @@ Phases, one line each (any failure exits non-zero):
                the prefill's last row and every step's logits: fp32
                within atol = rtol = 1e-4, and the bf16 logits no further
                from the CPU's fp32 logits than twice as far as the CPU's
-               own bf16 logits are
+               own bf16 logits are.  Then olmoe-1b-7b and
+               deepseek-moe-16b (prefill 16 + 8 decode steps),
+               hubert-xlarge (64 frames) and internvl2-76b (256 patches +
+               16 tokens) at full width with 2 layers, under the same
+               gates; every MoE run but the CPU's fp32 one routes by that
+               run's choices, and the card's fp32 router may choose
+               otherwise only at a top-k margin below 1e-4 (each run's
+               differing choices printed)
   9. durability the main configuration as a durable client
                (``durable_dir``, ``group_commit=8``): prefill, a full
                ``checkpoint()``, ``--plans`` fig9b plans, a delta
@@ -139,11 +166,20 @@ Phases, one line each (any failure exits non-zero):
                trained parameters serve through the port's ``Engine``: 4
                identical requests, 32 new tokens each, identical outputs;
                the store kernels' launches in the phase
+  8d'. train-hubert  hubert-xlarge at its published width (48 layers,
+               d 1280, ff 5120, 504 classes; seeded fp32 parameters, bf16
+               compute, remat), AdamW, 6 steps on one batch of 8 x 512
+               frames: the attention without the causal mask at head_dim
+               80, forward and backward; the loss must fall; step ms,
+               frames/s, peak memory, a profiled step
   8e. train-cpu==cuda  one train step of llama3.2-1b at full width with 2
                layers on the CPU (plain twins) and on the card, same
                weights and batch: fp32 loss, grad norm and gradient within
                1e-4, update within 1e-2 (relative norm); bf16 no more than
-               2x as far from the CPU's fp32 as the CPU's own bf16
+               2x as far from the CPU's fp32 as the CPU's own bf16; then
+               one fp32 step of reduced olmoe-1b-7b (and its aux
+               metrics; the card again without remat), hubert-xlarge and
+               internvl2-76b under the fp32 gates
   8f. train-restart  reduced llama3.2-1b on the card through
                ``run_with_restarts`` with a ``CheckpointManager`` under
                ``build/``: 12 steps, and 12 with crashes at 6 and 10; losses
@@ -155,14 +191,14 @@ Phases, one line each (any failure exits non-zero):
                time, its bound and the PyTorch library call's time.
                ``ms`` is CUDA events around 20 wrapper calls (host checks,
                allocation and the launch included); ``device_ms`` is the
-               kernels' own time per call from a ``torch.profiler`` trace
-               of 20 calls (each kernel's mean over the launches the trace
-               holds; both of decode's launches, split and combine,
-               count; ``device_ms_by`` says ``events`` where three traces
-               held too few launches and CUDA events on a queued stream
-               read it instead), and the attention rows add
-               ``library_device_ms``, the same reading for the
-               ``scaled_dot_product_attention`` call.  The
+               kernels' own time per call from three pooled
+               ``torch.profiler`` traces of 22 calls (each kernel's mean
+               over the launches the traces hold; both of decode's
+               launches, split and combine, count; ``device_ms_by`` says
+               ``events`` where the traces miss a kernel's launches and
+               CUDA events on a queued stream read it instead), and the
+               attention rows add ``library_device_ms``, the same reading
+               for the ``scaled_dot_product_attention`` call.  The
                ``flash_attention_bwd`` row is the backward at the train
                phase's inputs (its library call SDPA's backward through
                autograd), with each of its kernels' device ms, the
@@ -194,7 +230,11 @@ Phases, one line each (any failure exits non-zero):
                read first by a pointer chase over 256 MiB
                (``csrc/latency_probe.cu``); the same probe over a warm
                4 MiB cycle reads the L2 load latency (both on the
-               ``[latency]`` line).  The ``locate`` lines give one
+               ``[latency]`` line).  Four more attention rows read the
+               new families' shapes, each with its phase's launches:
+               olmoe-1b-7b's prefill and decode (serve-olmoe), and
+               hubert-xlarge's forward and backward without the causal
+               mask at head_dim 80 (train-hubert).  The ``locate`` lines give one
                lookup, ``backend.locate`` at the main path's widest
                inputs, in two forms, fused and composed over gathered rows
                as the JAX package composes it (descent, gather, rank,
@@ -314,6 +354,20 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 FWD_REPEATS = 200             # attention-bwd: the fp32 forward, one input
 FP32_ATTN_TOL = 2e-5          # ... each fp32 side from float64 (card tests)
+OLMOE_OWN = 16                # serve-olmoe: each request's own tokens ...
+OLMOE_NEW = 32                # ... and new tokens
+DEEPSEEK_PREFILL = 256        # moe-deepseek: prompt tokens ...
+DEEPSEEK_DECODE = 16          # ... then greedy decode steps
+DEEPSEEK_CUT = 20             # ... its layers when 28 do not fit
+DEEPSEEK_MARGIN_GIB = 4.0     # ... free memory beyond the parameters
+INTERNVL_LAYERS = 8           # vlm-internvl2: layers of 80 (76 B params)
+INTERNVL_TEXT = 256           # ... text tokens after its 256 patches
+HUBERT_B, HUBERT_S = 8, 512   # train-hubert: 8 x 10 s of 50 Hz frames ...
+HUBERT_STEPS = 6              # ... steps on one batch (it must fit it)
+ROUTE_MARGIN = 1e-4           # MoE model check: a fp32 route may differ
+                              # only where its top-k margin is below this
+FAMILY_PREFILL = 16           # cpu==cuda-model MoE: prompt, then 8 steps
+HUBERT_FRAMES = 64            # cpu==cuda-model hubert: frames a sequence
 TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
 TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
 
@@ -370,28 +424,39 @@ def kernel_trace(fn, calls: int) -> dict:
     return durs
 
 
+def pooled_trace(fn, calls: int, traces: int = 3) -> dict:
+    """{kernel name: (launches per call, durations in us)} over
+    ``traces`` traces of ``calls`` calls of ``fn``, pooled.  A trace can
+    lose its last launches or, late in a run, every launch of a kernel,
+    so a kernel counts at the most launches per call any trace shows of
+    it, and its mean over every duration recorded."""
+    seen = {}
+    for _ in range(traces):
+        for n, d in kernel_trace(fn, calls).items():
+            k, durs = seen.get(n, (0, []))
+            seen[n] = (max(k, round(len(d) / calls)), durs + d)
+    return seen
+
+
 def device_ms(fn, iters: int = 20) -> tuple:
     """Mean on-device kernel time of one call of ``fn``, and how it was
     read.  ``"profiler"``: from the kernels ``torch.profiler`` saw on the
-    card over ``iters`` calls and two more (a trace can lose the last
-    launches before it stops), for each kernel name the mean duration of
-    its recorded launches times its launches per call (a call that
-    launches two kernels counts both).  Unlike :func:`time_ms` it leaves
-    out the host's work between launches (argument checks, allocation,
-    the ``ctypes`` call).  When three traces in a row hold too few
-    launches, ``"events"``: CUDA events around ``iters`` calls queued
+    card in three traces of ``iters`` calls and two more
+    (:func:`pooled_trace`), for each kernel name the mean duration of its
+    recorded launches times its launches per call (a call that launches
+    two kernels counts both).  Unlike :func:`time_ms` it leaves out the
+    host's work between launches (argument checks, allocation, the
+    ``ctypes`` call).  When the traces hold less than one launch a call
+    of some kernel, ``"events"``: CUDA events around ``iters`` calls queued
     behind a spin kernel, so the host's work is hidden but the gaps
     between back-to-back kernels count."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    calls = iters + 2
-    for _ in range(3):
-        durs = kernel_trace(fn, calls)
-        per_call = {n: round(len(d) / calls) for n, d in durs.items()}
-        if durs and min(per_call.values()) >= 1:
-            return sum(per_call[n] * sum(d) / len(d)
-                       for n, d in durs.items()) / 1e3, "profiler"
+    seen = pooled_trace(fn, iters + 2)
+    if seen and min(k for k, _ in seen.values()) >= 1:
+        return sum(k * sum(d) / len(d) for k, d in seen.values()) / 1e3, \
+            "profiler"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)     # tens of ms: the calls queue behind it
@@ -1572,16 +1637,9 @@ def locate_report(main) -> dict:
     for form, (fn, args, kwargs) in forms.items():
         ms = time_ms(lambda: fn(*args, **kwargs))
         dev_ms, dev_by = device_ms(lambda: fn(*args, **kwargs))
-        # launches per call of each kernel the trace holds (a trace can
-        # lose its last few launches, hence the rounding; late in a run
-        # one can lose them all, so an empty trace is taken again, up to
-        # three times, as device_ms does)
-        calls = 22
-        for _ in range(3):
-            durs = kernel_trace(lambda: fn(*args, **kwargs), calls)
-            if durs:
-                break
-        n_kern = sum(round(len(d) / calls) for d in durs.values())
+        # launches per call of each kernel the pooled traces hold
+        n_kern = sum(k for k, _ in pooled_trace(
+            lambda: fn(*args, **kwargs), 22).values())
         out[form] = dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
                          kernels_per_call=n_kern)
         say("locate", form=form, P=a[3].numel(), ms=f"{ms:.5f}",
@@ -2212,6 +2270,307 @@ def serve_gemma3_phase(args, rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 7c-7e: the MoE and VLM families at their published widths
+# ---------------------------------------------------------------------------
+
+class MoERecorder:
+    """Wraps ``moe.moe_fwd`` (the name the transformer calls): keeps each
+    call's token count and ``moe_dropped`` (a tensor, read at the end, so
+    no call waits for the device)."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.orig = moe.moe_fwd
+        self.dropped = []
+
+    def __enter__(self):
+        def rec(cfg, p, x):
+            out, aux = self.orig(cfg, p, x)
+            self.dropped.append((x.shape[0] * x.shape[1],
+                                 aux["moe_dropped"].detach()))
+            return out, aux
+        self.moe.moe_fwd = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_fwd = self.orig
+
+    def mean_dropped(self, tokens: int) -> float:
+        """The mean dropped share over the calls that routed ``tokens``."""
+        got = [float(d) for t, d in self.dropped if t == tokens]
+        return float(np.mean(got)) if got else float("nan")
+
+
+def _free_card() -> float:
+    """Collect the earlier phases' objects (an engine holds itself in a
+    cycle through its wrapped ``_decode``) and return the card's free
+    memory, GiB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.mem_get_info()[0] / 2**30
+
+
+def serve_olmoe_phase(args, rng) -> dict:
+    """olmoe-1b-7b at its published width through the serving engine
+    (``launch.serve.build_engine``): 4 slots, ``max_len`` 512, two waves
+    of 4 requests on a shared 256-token system prompt, 32 new tokens
+    each.  Every prefix-table answer against the host dict; then a new
+    engine on the same weights serves the same request stream and must
+    give the same tokens (the MoE combine is a fixed-order gather).  A
+    MoE layer's capacity couples a call's tokens, so no check assumes a
+    request's tokens are independent of its batch-mates."""
+    import repro_torch.api as api
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import common, moe, transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    free = _free_card()
+    t0 = time.perf_counter()
+    eng = serve.build_engine("olmoe_1b_7b", seed=args.seed, slots=4,
+                             max_len=512, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check(cfg.moe is not None and cfg.d_model == 2048
+          and cfg.moe.n_experts == 64 and cfg.moe.top_k == 8,
+          f"serve-olmoe: {cfg.name} is not olmoe-1b-7b's published width")
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
+    plans = []
+    submit = eng.coalescer.submit
+
+    def logged(plan):
+        fut = submit(plan)
+        plans.append((plan, fut))
+        return fut
+    eng.coalescer.submit = logged
+    prefill_ms, decode_ms = [], []
+    eng._decode = timed_calls(eng._decode, decode_ms)
+    orig_prefill = transformer.prefill
+    transformer.prefill = timed_calls(orig_prefill, prefill_ms)
+    # two waves of 4: the shared system prompt, OLMOE_OWN tokens of each
+    system = rng.integers(0, cfg.vocab, SYSTEM_PROMPT).tolist()
+    waves = [[(w * 4 + i, system
+               + rng.integers(0, cfg.vocab, OLMOE_OWN).tolist())
+              for i in range(4)] for w in range(2)]
+
+    def requests():
+        return [[serve.Request(rid=rid, prompt=list(p), max_new=OLMOE_NEW)
+                 for rid, p in wave] for wave in waves]
+    reqs_by_wave = requests()
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with AttnRecorder(common) as rec, MoERecorder(moe) as mrec:
+            for wave in reqs_by_wave:
+                eng.run(wave)
+            view = eng.snapshot_view()
+        torch.cuda.synchronize()
+    finally:
+        transformer.prefill = orig_prefill
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check_table(api, plans, view, eng, "serve-olmoe")
+    reqs = reqs_by_wave[0] + reqs_by_wave[1]
+    check(all(r.done and len(r.out) == OLMOE_NEW for r in reqs),
+          "serve-olmoe: a request did not finish")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "serve-olmoe: a token outside the vocabulary")
+    check(reqs[0].prefix_reused == 0 and len(prefill_ms) >= 1,
+          "serve-olmoe: the first request did not go through prefill")
+    check(all(r.prefix_reused >= SYSTEM_PROMPT for r in reqs[1:4]),
+          "serve-olmoe: a first-wave request did not reuse the system "
+          "prompt")
+    for name in SERVE_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the serve-olmoe path")
+    check(rec.n.get("flash_attention") == counts.get("flash_attention")
+          and rec.n.get("decode_attention") == counts.get("decode_attention"),
+          f"serve-olmoe: attention calls {rec.n} != launches {counts}")
+    dropped = mrec.mean_dropped(eng.n_slots)
+    # the same request stream through a new engine on the same weights
+    again = serve.Engine(cfg, eng.params, n_slots=4, max_len=512,
+                         device="cuda")
+    rerun = requests()
+    for wave in rerun:
+        again.run(wave)
+    check([r.out for w in rerun for r in w] == [r.out for r in reqs],
+          "serve-olmoe: a rerun of the same request stream gave other "
+          "tokens")
+    new_tokens = sum(len(r.out) for r in reqs)
+    say("serve-olmoe", model=cfg.name, layers=cfg.n_layers, d=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        experts=f"{cfg.moe.n_experts}top{cfg.moe.top_k}",
+        d_expert=cfg.moe.d_expert, vocab=cfg.vocab, params=n_params,
+        free_gib_before=f"{free:.1f}", requests=len(reqs),
+        build_s=f"{build_s:.3f}", wall_s=f"{wall_s:.3f}",
+        new_tokens=new_tokens, tokens_per_s=f"{new_tokens / wall_s:.2f}",
+        prefills=len(prefill_ms),
+        prefill_ms_per_prompt=f"{np.mean(prefill_ms):.3f}",
+        decode_calls=len(decode_ms),
+        decode_ms_per_step=f"{np.mean(decode_ms):.3f}",
+        decode_moe_dropped_mean=f"{dropped:.4f}",
+        reused=json.dumps([r.prefix_reused for r in reqs]).replace(" ", ""),
+        rerun_identical=True,
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        table_entries=len(view),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del eng, again
+    return dict(counts=counts, calls=rec.calls, n=rec.n)
+
+
+def moe_deepseek_phase(args) -> dict:
+    """deepseek-moe-16b at its published width (2 shared + 64 routed
+    experts, top-6) through ``transformer.prefill`` and ``decode_step``:
+    one prompt of ``DEEPSEEK_PREFILL`` tokens, then ``DEEPSEEK_DECODE``
+    greedy steps.  Its 16.67 B fp32 parameters take 66.7 GB: with less
+    free memory than that and a margin the phase takes the first
+    ``DEEPSEEK_CUT`` of its 28 layers, and says so."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import tree_leaves
+
+    free = _free_card()
+    full = get_arch("deepseek_moe_16b")
+    m = full.moe
+    per_layer = (4 * full.d_model * full.n_heads * full.resolved_head_dim
+                 + full.d_model * m.n_experts
+                 + 3 * m.n_experts * full.d_model * m.d_expert
+                 + 3 * full.d_model * m.d_expert * m.n_shared)
+    need_gib = 4 * (full.n_layers * per_layer
+                    + full.vocab * full.d_model) / 2**30
+    cfg = full if free >= need_gib + DEEPSEEK_MARGIN_GIB else \
+        dataclasses.replace(full, n_layers=DEEPSEEK_CUT)
+    t0 = time.perf_counter()
+    params = TT.init(cfg, torch.Generator(device="cuda")
+                     .manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(args.seed + 23)
+    toks = rng.integers(0, cfg.vocab, (1, DEEPSEEK_PREFILL)).astype(np.int32)
+    Smax = DEEPSEEK_PREFILL + DEEPSEEK_DECODE
+    _build.launch_counts.clear()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TT.prefill(cfg, params, toks, Smax)
+        nxt = logits[:, -1].float().argmax(-1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(logits[:, -1]).all()),
+              "moe-deepseek: non-finite prefill logits")
+        del logits
+        lens = torch.full((1,), DEEPSEEK_PREFILL, dtype=torch.int32,
+                          device="cuda")
+        out, step_ms = [], []
+        for _ in range(DEEPSEEK_DECODE):
+            t0 = time.perf_counter()
+            lg, cache = TT.decode_step(cfg, params, nxt, cache, lens)
+            nxt = lg.float().argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(lg).all()),
+                  "moe-deepseek: non-finite decode logits")
+            out.append(int(nxt[0]))
+            lens += 1
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    check(counts.get("flash_attention") == L
+          and counts.get("decode_attention") == L * DEEPSEEK_DECODE,
+          f"moe-deepseek: launches {counts} for {L} layers")
+    check(all(0 <= t < cfg.vocab for t in out),
+          "moe-deepseek: a token outside the vocabulary")
+    say("moe-deepseek", model=cfg.name, layers=L,
+        layers_published=full.n_layers,
+        cut="none" if L == full.n_layers else f"first_{L}_layers",
+        d=cfg.d_model, experts=f"{m.n_shared}shared+{m.n_experts}top{m.top_k}",
+        d_expert=m.d_expert, vocab=cfg.vocab, params=n_params,
+        free_gib_before=f"{free:.1f}", need_gib=f"{need_gib:.1f}",
+        init_s=f"{init_s:.3f}", prefill=DEEPSEEK_PREFILL,
+        prefill_ms=f"{prefill_ms:.3f}", decode_steps=DEEPSEEK_DECODE,
+        decode_ms_per_step=f"{np.mean(step_ms[1:]):.3f}",
+        decode_ms_first=f"{step_ms[0]:.3f}",
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del params, cache
+    return dict(counts=counts)
+
+
+def vlm_internvl2_phase(args) -> dict:
+    """internvl2-76b at its published widths (d 8192, 64 heads on 8 kv
+    heads, head_dim 128, ff 28,672, vocab 128,256, 256 patches of 3,200
+    features) cut to ``INTERNVL_LAYERS`` of its 80 layers (76 B
+    parameters do not fit one card): ``make_prefill_step`` on one
+    sequence of 256 patches and ``INTERNVL_TEXT`` tokens, twice (the
+    first call sets up cuBLAS)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps
+
+    free = _free_card()
+    full = get_arch("internvl2_76b")
+    cfg = dataclasses.replace(full, n_layers=INTERNVL_LAYERS)
+    t0 = time.perf_counter()
+    params = TT.init(cfg, torch.Generator(device="cuda")
+                     .manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(args.seed + 24)
+    NP = cfg.vlm.n_patches
+    batch = {
+        "tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab, (1, INTERNVL_TEXT)).astype(np.int32),
+            device="cuda"),
+        "patches": torch.as_tensor(rng.standard_normal(
+            (1, NP, cfg.vlm.patch_dim)).astype(np.float32) * 0.5,
+            device="cuda"),
+    }
+    prefill = steps.make_prefill_step(cfg)
+    _build.launch_counts.clear()
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (1, NP + INTERNVL_TEXT, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"vlm-internvl2: logits {tuple(logits.shape)} not finite or not "
+          f"[1, {NP + INTERNVL_TEXT}, {cfg.vocab}]")
+    check(counts.get("flash_attention") == 2 * cfg.n_layers,
+          f"vlm-internvl2: launches {counts} for 2 calls of "
+          f"{cfg.n_layers} layers")
+    say("vlm-internvl2", model=cfg.name, layers=cfg.n_layers,
+        layers_published=full.n_layers, d=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        head_dim=cfg.resolved_head_dim, ff=cfg.d_ff, vocab=cfg.vocab,
+        patches=f"{NP}x{cfg.vlm.patch_dim}", text=INTERNVL_TEXT,
+        params=n_params, free_gib_before=f"{free:.1f}",
+        init_s=f"{init_s:.3f}", prefill_ms_first=f"{ms[0]:.3f}",
+        prefill_ms=f"{ms[1]:.3f}",
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del params, logits
+    return dict(counts=counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the model on the CPU and on the card, same weights
 # ---------------------------------------------------------------------------
 
@@ -2301,6 +2660,203 @@ def model_cpu_equals_cuda(args) -> None:
             gate_bf16=f"cuda<={BF16_SPREAD}x_cpu",
             max_abs_err_bf16=f"{err16:.3e}")
         del params, out
+        torch.cuda.empty_cache()
+
+
+class RoutePin:
+    """Wraps ``moe.route``, the MoE layer's router: records each call's
+    own choices and top-k margins (the K-th largest probability less the
+    next); with ``pin`` (a reference run's choices, in call order) each
+    call routes by the pinned choices instead, their gates read from
+    this run's own probabilities.  Pinned, two runs take the same routes,
+    so their logits hold the arithmetic alone; the recorded own choices
+    say where the router itself would have parted."""
+
+    def __init__(self, moe, pin=None):
+        self.moe = moe
+        self.orig = moe.route
+        self.pin = pin
+        self.calls = []
+
+    def __enter__(self):
+        def route(cfg, p, xt):
+            logits, probs, gate, choice = self.orig(cfg, p, xt)
+            K = choice.shape[1]
+            top = probs.detach().topk(K + 1, dim=-1).values
+            self.calls.append((choice.detach().cpu(),
+                               (top[:, K - 1] - top[:, K]).float().cpu()))
+            if self.pin is not None:
+                choice = self.pin[len(self.calls) - 1].to(choice.device)
+                g = probs.gather(-1, choice)
+                gate = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+            return logits, probs, gate, choice
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def choices(self) -> list:
+        return [c for c, _ in self.calls]
+
+
+def route_diff(calls, ref) -> tuple:
+    """(token choices that differ from ``ref``'s, tokens routed, the
+    smallest and the largest of ``ref``'s top-k margins at the tokens
+    where they differ); choice sets compared per token (the order of a
+    token's K choices changes nothing)."""
+    check(len(calls) == len(ref), f"route calls {len(calls)} != "
+                                  f"{len(ref)} of the reference")
+    pairs, tokens, margins = 0, 0, []
+    for (c, _), (r, m) in zip(calls, ref):
+        same = (c[:, :, None] == r[:, None, :]).any(-1).sum(-1)
+        miss = c.shape[1] - same
+        pairs += int(miss.sum())
+        tokens += c.shape[0]
+        margins += m[miss > 0].tolist()
+    return (pairs, tokens, min(margins) if margins else float("nan"),
+            max(margins) if margins else float("nan"))
+
+
+def model_families_cpu_equals_cuda(args) -> None:
+    """The MoE, encoder-only and VLM families at full width with 2 layers
+    each, the same weights on the CPU and on the card: olmoe-1b-7b and
+    deepseek-moe-16b prefill ``FAMILY_PREFILL`` tokens (B = 2) and take 8
+    teacher-forced decode steps (the prefill's last row and each step's
+    logits compared); hubert-xlarge's forward over ``HUBERT_FRAMES``
+    frames (B = 2, every row); internvl2-76b's forward over 256 patches
+    and 16 tokens (every row), through ``make_prefill_step``.
+
+    The gates are phase ``cpu==cuda-model``'s (fp32 within ``FP32_TOL``;
+    the card's bf16 no more than ``BF16_SPREAD`` times as far from the
+    CPU's fp32 as the CPU's own bf16).  One flipped expert choice moves a
+    logit row by far more than any rounding, so every MoE run but the
+    CPU's fp32 one routes by that run's choices (``RoutePin``), and the
+    routing is checked apart: the card's fp32 router may choose otherwise
+    only where the reference's top-k margin is below ``ROUTE_MARGIN`` (a
+    near-tie).  The bf16 runs' own differing choices are printed."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import steps
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    for arch in ("olmoe_1b_7b", "deepseek_moe_16b", "hubert_xlarge",
+                 "internvl2_76b"):
+        t_arch = time.perf_counter()
+        base = dataclasses.replace(get_arch(arch), n_layers=2)
+        # drawn on the card (fast), kept on the host
+        params = to(TT.init(base, torch.Generator(device="cuda")
+                            .manual_seed(args.seed)), "cpu")
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(args.seed + 2)
+        if base.moe is not None:
+            S0 = FAMILY_PREFILL
+            toks = rng.integers(0, base.vocab, (2, S0 + 8)).astype(np.int32)
+        elif base.encoder_only:
+            emb = (rng.standard_normal((2, HUBERT_FRAMES, base.d_model))
+                   * 0.5).astype(np.float32)
+        else:
+            batch = {"tokens": rng.integers(0, base.vocab, (1, 16))
+                     .astype(np.int32),
+                     "patches": (rng.standard_normal(
+                         (1, base.vlm.n_patches, base.vlm.patch_dim))
+                         * 0.5).astype(np.float32)}
+
+        def logits_on(cfg, dev):
+            p = to(params, dev)
+            with torch.no_grad():
+                if cfg.encoder_only:
+                    lg, _ = TT.forward_train(
+                        cfg, p, embeds=torch.as_tensor(emb, device=dev))
+                    return lg.float().cpu().numpy()
+                if cfg.vlm is not None:
+                    lg = steps.make_prefill_step(cfg)(p, {
+                        k: torch.as_tensor(v, device=dev)
+                        for k, v in batch.items()})
+                    return lg.float().cpu().numpy()
+                cache_dtype = (torch.float32 if cfg.compute_dtype
+                               == "float32" else torch.bfloat16)
+                lg, cache = TT.prefill(cfg, p, toks[:, :S0], S0 + 8,
+                                       cache_dtype)
+                rows = [lg[:, -1].float().cpu()]
+                del lg
+                lens = np.full(2, S0, np.int32)
+                for t in range(S0, S0 + 8):
+                    lg, cache = TT.decode_step(cfg, p, toks[:, t], cache,
+                                               lens)
+                    lens += 1
+                    rows.append(lg.float().cpu())
+                return torch.stack(rows).numpy()
+
+        out, routes, secs = {}, {}, {}
+        for cdt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=cdt)
+            for dev in ("cpu", "cuda"):
+                ref = routes.get(("float32", "cpu"))
+                t0 = time.perf_counter()
+                with RoutePin(moe, None if ref is None else
+                              [c for c, _ in ref]) as pin:
+                    out[cdt, dev] = logits_on(cfg, dev)
+                secs[cdt, dev] = time.perf_counter() - t0
+                routes[cdt, dev] = pin.calls
+                check(np.isfinite(out[cdt, dev]).all(),
+                      f"cpu==cuda model: non-finite {cdt} logits of "
+                      f"{base.name} on {dev}")
+        ref = out["float32", "cpu"]
+        err32 = float(np.abs(out["float32", "cuda"] - ref).max())
+        # the largest |error| over its allowance atol + rtol |ref|
+        use = float((np.abs(out["float32", "cuda"] - ref)
+                     / (FP32_TOL + FP32_TOL * np.abs(ref))).max())
+        check(use <= 1.0,
+              f"cpu==cuda model: {base.name} fp32 logits differ (max abs "
+              f"{err32:.3e}, {use:.2f} of the gate)")
+        spread_cpu = float(np.abs(out["bfloat16", "cpu"] - ref).max())
+        spread_cuda = float(np.abs(out["bfloat16", "cuda"] - ref).max())
+        check(spread_cuda <= BF16_SPREAD * spread_cpu,
+              f"cpu==cuda model: {base.name}: the card's bf16 logits stand "
+              f"{spread_cuda:.3e} from fp32, more than {BF16_SPREAD}x the "
+              f"CPU's {spread_cpu:.3e}")
+        kw = {"fp32_gate_use": f"{use:.3f}",
+              "max_abs_logit": f"{float(np.abs(ref).max()):.3f}"}
+        if base.moe is not None:
+            r0 = routes["float32", "cpu"]
+            flips = {key: route_diff(routes[key], r0) for key in
+                     (("float32", "cuda"), ("bfloat16", "cpu"),
+                      ("bfloat16", "cuda"))}
+            pairs, tokens, lo, hi = flips["float32", "cuda"]
+            check(pairs == 0 or hi <= ROUTE_MARGIN,
+                  f"cpu==cuda model: {base.name}: the card's fp32 router "
+                  f"chose otherwise in {pairs} (token, choice) pairs, at "
+                  f"top-k margins up to {hi:.3e} > {ROUTE_MARGIN}")
+            kw.update(
+                route_calls=len(r0), routed_tokens=tokens,
+                route_flips_fp32_cuda=pairs,
+                route_flip_margins_fp32=f"{lo:.3e}..{hi:.3e}",
+                route_gate=f"fp32_flips_only_below_{ROUTE_MARGIN}",
+                route_flips_bf16=json.dumps(
+                    {f"{d}": [v[0], float(f"{v[2]:.3e}"),
+                              float(f"{v[3]:.3e}")]
+                     for (c, d), v in flips.items() if c == "bfloat16"}
+                ).replace(" ", ""))
+        say("cpu==cuda-model", model=base.name, layers=base.n_layers,
+            family=base.family, logits=ref.size,
+            max_abs_err_fp32=f"{err32:.3e}",
+            gate_fp32=f"atol=rtol={FP32_TOL}",
+            bf16_cpu_from_fp32=f"{spread_cpu:.3e}",
+            bf16_cuda_from_fp32=f"{spread_cuda:.3e}",
+            gate_bf16=f"cuda<={BF16_SPREAD}x_cpu", **kw,
+            seconds=f"{time.perf_counter() - t_arch:.1f}",
+            run_s=json.dumps({f"{c}/{d}": round(s, 2) for (c, d), s in
+                              secs.items()}).replace(" ", ""))
+        del params, out
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -2573,7 +3129,8 @@ def _train_group(name: str) -> str:
     return "other"
 
 
-def train_profile(run_step, step_ms: float) -> dict:
+def train_profile(run_step, step_ms: float, tag: str = "train-profile"
+                  ) -> dict:
     """One more train step under ``torch.profiler`` (device activity):
     the kernels' time by group (the GEMMs, the attention's forward and
     backward kernels, everything else), the device's busy time and its
@@ -2593,7 +3150,7 @@ def train_profile(run_step, step_ms: float) -> dict:
                kernels=sum(len(d) for d in durs.values()),
                groups_ms={k: round(v, 3) for k, v in groups.items()},
                top_other_ms={n: round(t, 3) for t, n in top})
-    say("train-profile", step_ms=f"{step_ms:.3f}",
+    say(tag, step_ms=f"{step_ms:.3f}",
         device_busy_ms=f"{busy:.3f}", idle_share=f"{out['idle_share']:.4f}",
         kernels=out["kernels"],
         groups_ms=json.dumps(out["groups_ms"]).replace(" ", ""),
@@ -2707,6 +3264,73 @@ def train_serve_phase(args, train: dict) -> dict:
     return dict(counts=counts)
 
 
+def train_hubert_phase(args) -> dict:
+    """hubert-xlarge at its published width (48 layers, d 1280, 16 heads
+    of 80, ff 5120, 504 cluster classes; seeded fp32 parameters, bf16
+    compute, remat), AdamW (warmup 2), ``HUBERT_STEPS`` steps on one
+    batch of ``make_batch(cfg, HUBERT_B, HUBERT_S, 0)``: frame features
+    and ~8 % masked positions with random class labels.  Random labels
+    are learnt only by seeing them again, so the phase trains on one
+    batch and its loss must fall.  The attention runs without the causal
+    mask at head_dim 80: two forward launches (remat) and one backward
+    launch a layer a step."""
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    free = _free_card()
+    cfg = get_arch("hubert_xlarge")
+    check(cfg.encoder_only and cfg.resolved_head_dim == 80 and cfg.remat
+          and cfg.compute_dtype == "bfloat16",
+          f"train-hubert: {cfg.name} is not the encoder at head_dim 80")
+    opt = adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP,
+                            total_steps=HUBERT_STEPS)
+    t0 = time.perf_counter()
+    state = steps.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(cfg, opt)
+    batch = make_batch(cfg, HUBERT_B, HUBERT_S, 0, args.seed, device="cuda")
+    _build.launch_counts.clear()
+    with AttnRecorder(common) as rec:
+        state, losses, step_ms = _train_steps(
+            step, state, [batch] * HUBERT_STEPS, "train-hubert")
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    check(losses[-1] < losses[0],
+          f"train-hubert: the loss did not fall: {losses[0]} -> "
+          f"{losses[-1]}")
+    check(counts.get("flash_attention") == 2 * L * HUBERT_STEPS
+          and counts.get("flash_attention_bwd") == L * HUBERT_STEPS,
+          f"train-hubert: kernel launches {counts} for {HUBERT_STEPS} "
+          f"steps of {L} layers")
+    check(all(not kw.get("causal", True) for _, _, kw in rec.calls.values()),
+          "train-hubert: a causal attention call")
+    steady = float(np.mean(step_ms[1:]))
+    prof = train_profile(lambda: step(state, batch), steady,
+                         tag="train-hubert-profile")
+    say("train-hubert", model=cfg.name, layers=L, d=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        head_dim=cfg.resolved_head_dim, ff=cfg.d_ff, classes=cfg.vocab,
+        batch=HUBERT_B, frames=HUBERT_S, steps=HUBERT_STEPS,
+        masked=int(batch["mask"].sum()), free_gib_before=f"{free:.1f}",
+        init_s=f"{init_s:.3f}",
+        step_ms=json.dumps([round(x, 3) for x in step_ms]).replace(" ", ""),
+        step_ms_steady=f"{steady:.3f}",
+        frames_per_s=f"{HUBERT_B * HUBERT_S / steady * 1e3:.1f}",
+        idle_share=f"{prof['idle_share']:.4f}",
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del state
+    return dict(counts=counts, calls=rec.calls, step_ms=steady)
+
+
 def _rel_norm(x, ref) -> float:
     return float((x - ref).norm()) / max(float(ref.norm()), 1e-30)
 
@@ -2801,6 +3425,86 @@ def train_cpu_equals_cuda(args) -> None:
         gate_bf16=f"cuda<={BF16_SPREAD}x_cpu,loss<={TRAIN_BF16_LOSS}",
         step_s=json.dumps({f"{c}/{d}": round(s, 3) for (c, d), s in
                            secs.items()}).replace(" ", ""))
+
+
+def train_families_cpu_equals_cuda(args) -> None:
+    """One train step of reduced olmoe-1b-7b, hubert-xlarge and
+    internvl2-76b (fp32 compute) on the CPU and on the card from the same
+    state and batch, under phase ``train-cpu==cuda``'s fp32 gates: loss,
+    grad norm and each leaf's clipped gradient within ``FP32_TOL``, the
+    update within ``TRAIN_UPDATE_TOL``.  olmoe's gradient runs through
+    the dispatch, gates and combine; its aux metrics are held within
+    ``FP32_TOL`` too, its forward's routes as in ``cpu==cuda-model``, and
+    a card step without remat must give the remat step's gradient within
+    ``FP32_TOL``."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import steps
+
+    opt = adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    for arch in ("olmoe_1b_7b", "hubert_xlarge", "internvl2_76b"):
+        cfg = get_arch(arch).reduced()
+        params = TT.init(cfg, torch.Generator().manual_seed(args.seed))
+        p0 = tree_leaves(params)
+        runs = [("cpu", cfg), ("cuda", cfg)]
+        if cfg.moe is not None:
+            runs.append(("cuda", dataclasses.replace(cfg, remat=False)))
+        out = []
+        for dev, c in runs:
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            st = steps.TrainState(p, adamw.init(p), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            batch = make_batch(c, 4, 32, 0, args.seed, device=dev)
+            with RoutePin(moe) as pin:
+                st, met = steps.make_train_step(c, opt)(st, batch)
+            out.append(dict(
+                met={k: float(v) for k, v in met.items()},
+                routes=pin.calls[:cfg.n_layers],
+                m=[m.cpu() for m in tree_leaves(st.opt.m)],
+                d=[q.cpu() - q0 for q, q0 in zip(tree_leaves(st.params),
+                                                 p0)]))
+        ref, card = out[0], out[1]
+        kw = {}
+        if cfg.moe is not None:
+            pairs, _, lo, hi = route_diff(card["routes"], ref["routes"])
+            check(pairs == 0 or hi <= ROUTE_MARGIN,
+                  f"train-cpu==cuda: {cfg.name}: the card chose otherwise "
+                  f"in {pairs} pairs, at margins up to {hi:.3e}")
+            remat_err = max(_rel_norm(a, b) for a, b in
+                            zip(out[2]["m"], card["m"]))
+            check(remat_err <= FP32_TOL,
+                  f"train-cpu==cuda: {cfg.name}: the card's gradient "
+                  f"without remat off the remat one by {remat_err:.3e}")
+            kw = dict(route_flips=pairs, no_remat_grad_err=f"{remat_err:.3e}",
+                      moe_dropped=ref["met"]["moe_dropped"])
+        keys = [k for k in ref["met"] if k in ("loss", "grad_norm")
+                or k.startswith("moe_")]
+        for k in keys:
+            a, b = card["met"][k], ref["met"][k]
+            check(abs(a - b) <= FP32_TOL * max(abs(b), 1e-6),
+                  f"train-cpu==cuda: {cfg.name} fp32 {k} {a} != {b}")
+        m32 = max(_rel_norm(a, b) for a, b in zip(card["m"], ref["m"]))
+        d32 = max(_rel_norm(a, b) for a, b in zip(card["d"], ref["d"]))
+        check(m32 <= FP32_TOL, f"train-cpu==cuda: {cfg.name} fp32 gradient "
+                               f"off by {m32:.3e} > {FP32_TOL}")
+        check(d32 <= TRAIN_UPDATE_TOL, f"train-cpu==cuda: {cfg.name} fp32 "
+                                       f"update off by {d32:.3e}")
+        say("train-cpu==cuda", model=cfg.name, reduced=True,
+            layers=cfg.n_layers, batch=4, seq=32,
+            loss_cpu=f"{ref['met']['loss']:.6f}",
+            loss_cuda=f"{card['met']['loss']:.6f}",
+            grad_norm_cpu=f"{ref['met']['grad_norm']:.6f}",
+            grad_norm_cuda=f"{card['met']['grad_norm']:.6f}",
+            grad_err_fp32=f"{m32:.3e}", update_err_fp32=f"{d32:.3e}",
+            gate_fp32=f"{','.join(keys)},grad<={FP32_TOL},"
+                      f"update<={TRAIN_UPDATE_TOL}", **kw)
 
 
 def train_restart_phase(args) -> None:
@@ -3231,20 +3935,24 @@ def attention_reading(name: str, a: tuple, kw: dict, launches_by: dict,
     return row
 
 
-def attention_report(serve, gemma, train, train_serve) -> list:
+def attention_report(res: dict) -> list:
     """The two attention kernels at the widest inputs the llama3.2-1b serve
-    path gave them (``launches`` adds the serve, serve-gemma3, train and
-    train-serve phases', ``launches_by``); their second readings at
-    gemma3-1b's (the windowed prefill; the decode with its window and, on
-    the same inputs, without it: a global layer's call), each with the
-    serve-gemma3 phase's launches of that variant; and the flash backward
-    at the train phase's inputs."""
+    path gave them (``launches`` adds every phase's that ran them,
+    ``launches_by``); their second readings at gemma3-1b's (the windowed
+    prefill; the decode with its window and, on the same inputs, without
+    it: a global layer's call), each with the serve-gemma3 phase's
+    launches of that variant; the flash backward at the train phase's
+    inputs; then olmoe-1b-7b's prefill and decode (serve-olmoe) and
+    hubert-xlarge's forward and backward (train-hubert: no causal mask,
+    head_dim 80), each with its phase's launches.  ``res`` maps a phase
+    to its result (``counts``, and ``calls`` where it kept inputs)."""
     rows = []
+    serve, gemma = res["serve"], res["serve-gemma3"]
+    olmoe, hubert = res["serve-olmoe"], res["train-hubert"]
     for name in ("flash_attention", "decode_attention"):
         _, a, kw = serve["calls"][name]
-        by = {phase: res["counts"].get(name, 0) for phase, res in
-              (("serve", serve), ("serve-gemma3", gemma), ("train", train),
-               ("train-serve", train_serve))}
+        by = {phase: r["counts"].get(name, 0) for phase, r in res.items()
+              if r["counts"].get(name, 0)}
         rows.append(attention_reading(name, a, kw, by, "llama3.2-1b serve"))
     _, a, kw = gemma["calls"]["flash_attention:window"]
     rows.append(attention_reading(
@@ -3260,35 +3968,53 @@ def attention_report(serve, gemma, train, train_serve) -> list:
         "decode_attention", a[:4], kw,
         {"serve-gemma3": gemma["n"]["decode_attention"] - n_win},
         "gemma3-1b decode, no window"))
-    rows.append(attention_bwd_report(train, train_serve))
+    bwd = "flash_attention_bwd"
+    rows.append(attention_bwd_report(
+        res["train"]["calls"]["flash_attention"],
+        {phase: r["counts"].get(bwd, 0) for phase, r in res.items()
+         if r["counts"].get(bwd, 0)}, "llama3.2-1b train", TRAIN_STEPS))
+    for name, reading in (("flash_attention", "olmoe-1b-7b prefill"),
+                          ("decode_attention", "olmoe-1b-7b decode")):
+        _, a, kw = olmoe["calls"][name]
+        rows.append(attention_reading(name, a, kw,
+                                      {"serve-olmoe": olmoe["n"][name]},
+                                      reading))
+    reading = "hubert-xlarge train, no causal mask, D 80"
+    rows.append(attention_reading(
+        "flash_attention", hubert["calls"]["flash_attention"][1],
+        hubert["calls"]["flash_attention"][2],
+        {"train-hubert": hubert["counts"].get("flash_attention", 0)},
+        reading))
+    rows.append(attention_bwd_report(
+        hubert["calls"]["flash_attention"],
+        {"train-hubert": hubert["counts"].get(bwd, 0)}, reading,
+        HUBERT_STEPS))
     return rows
 
 
 def _kernels_ms(fn, calls: int = 20) -> dict:
     """Each kernel's mean device ms over ``calls`` calls of ``fn``, by
     its name cut to its innermost namespace and template arguments
-    (``tc::dq_kernel<64, 64>``; a trace that comes back empty is taken
-    again, up to three times)."""
-    durs = {}
-    for _ in range(3):
-        durs = kernel_trace(fn, calls)
-        if durs:
-            break
+    (``tc::dq_kernel<64, 64>``; :func:`pooled_trace`)."""
     out = {}
-    for name, d in durs.items():
+    for name, (_, d) in pooled_trace(fn, calls).items():
         m = re.search(r"(\w+::\w+(?:<[^>]*>)?)\(", name)
         out[m.group(1) if m else name[:60]] = round(sum(d) / len(d) / 1e3,
                                                      5)
     return out
 
 
-def attention_bwd_report(train, train_serve) -> dict:
-    """The flash backward at the train phase's inputs (its q, k, v; o and
-    lse from the forward kernel; a seeded dO): parity with
+def attention_bwd_report(call, by: dict, reading: str, steps: int) -> dict:
+    """The flash backward at a train phase's inputs (``call``: its widest
+    forward call's q, k, v; o and lse from the forward kernel; a seeded
+    dO), with that phase's and the others' launches ``by`` (the first
+    entry's over its ``steps`` steps give ``launches_per_step``): parity
+    with
     ``attention_bwd_ref``, ``ms`` and ``device_ms``, each of its kernels'
     device ms, the achieved TFLOP/s of the 7 tile products it does over
     the unmasked pairs, the same inputs without the causal mask (twice
-    the pairs), the plain twin's time, SDPA's backward through autograd
+    the pairs; a call without the mask reads no second time), the plain
+    twin's time, SDPA's backward through autograd
     (``library_ms``), and the bound: q, k, v, o, dO and lse read once and
     dq, dk, dv written once, against 2.5x the forward's tensor-core FLOPs
     (4 per unmasked pair and head dim) at 989 TFLOP/s."""
@@ -3299,7 +4025,7 @@ def attention_bwd_report(train, train_serve) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     name = "flash_attention_bwd"
-    _, a, kw = train["calls"]["flash_attention"]
+    _, a, kw = call
     q, k, v = (t.contiguous() for t in a)
     causal, window = kw.get("causal", True), kw.get("window", 0)
     o, lse = flash_attention(q, k, v, causal=causal, window=window,
@@ -3318,8 +4044,8 @@ def attention_bwd_report(train, train_serve) -> dict:
     err = max(float((x.float() - y.float()).abs().max())
               for x, y in zip(got, want))
     rel = _grad_err(got, want)
-    check(rel <= BWD_TOL[q.dtype], f"{name} != plain at the train "
-                                   f"phase's inputs ({rel:.3e} of max)")
+    check(rel <= BWD_TOL[q.dtype], f"{name} != plain at {reading}'s "
+                                   f"inputs ({rel:.3e} of max)")
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
@@ -3332,14 +4058,15 @@ def attention_bwd_report(train, train_serve) -> dict:
     plain_ms = time_ms(plain, iters=5)
     library_ms = time_ms(lib)
     library_dev_ms, library_dev_by = device_ms(lib)
-    # the same inputs without the causal mask: twice the pairs
-    o_nc, lse_nc = flash_attention(q, k, v, causal=False, window=window,
-                                   return_lse=True)
+    nc_ms = None
+    if causal:      # the same inputs without the causal mask: twice the pairs
+        o_nc, lse_nc = flash_attention(q, k, v, causal=False, window=window,
+                                       return_lse=True)
 
-    def run_nc():
-        return flash_attention_bwd(q, k, v, o_nc, lse_nc, do, causal=False,
-                                   window=window)
-    nc_ms, _ = device_ms(run_nc)
+        def run_nc():
+            return flash_attention_bwd(q, k, v, o_nc, lse_nc, do,
+                                       causal=False, window=window)
+        nc_ms, _ = device_ms(run_nc)
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     qi = torch.arange(Sq)[:, None]
@@ -3357,11 +4084,11 @@ def attention_bwd_report(train, train_serve) -> dict:
     tflops = done_flops / (dev_ms * 1e-3) / 1e12
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / BF16_TC_FLOPS * 1e3
-    by = {"train": train["counts"].get(name, 0),
-          "train-serve": train_serve["counts"].get(name, 0)}
+    per_step = next(iter(by.values()), 0) / steps
     src, replaces = KERNELS[name]
-    shape = f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D}"
-    say("kernel", name=name, shape=shape, dtype=str(q.dtype),
+    shape = f"B={B},H={H},KVH={KVH},Sq={Sq},Skv={Skv},D={D},causal={causal}"
+    say("kernel", name=name, reading=reading.replace(" ", "_"), shape=shape,
+        dtype=str(q.dtype),
         ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", device_ms_by=dev_by,
         plain_ms=f"{plain_ms:.5f}",
         bound_ms=f"{max(bound_bytes, bound_ops):.6f}",
@@ -3369,14 +4096,15 @@ def attention_bwd_report(train, train_serve) -> dict:
         library_device_ms=f"{library_dev_ms:.5f}",
         library_device_ms_by=library_dev_by,
         max_abs_err=f"{err:.3e}", err_of_max_grad=f"{rel:.3e}",
-        launches_per_step=by["train"] / TRAIN_STEPS,
+        launches_per_step=per_step,
         kernels_device_ms=json.dumps(kernels_ms).replace(" ", ""),
         tflops_7_products=f"{tflops:.1f}",
-        noncausal_device_ms=f"{nc_ms:.5f}")
+        noncausal_device_ms="none" if nc_ms is None else f"{nc_ms:.5f}",
+        launches=json.dumps(by).replace(" ", ""))
     return dict(
-        name=name, route="cuda", source=src, replaces=replaces,
-        launches=sum(by.values()), launches_by=by,
-        launches_per_step=by["train"] / TRAIN_STEPS, max_abs_err=err,
+        name=name, reading=reading, shape=shape, route="cuda", source=src,
+        replaces=replaces, launches=sum(by.values()), launches_by=by,
+        launches_per_step=per_step, max_abs_err=err,
         ms=ms, device_ms=dev_ms, device_ms_by=dev_by, plain_ms=plain_ms,
         kernels_device_ms=kernels_ms, tflops_7_products=tflops,
         noncausal_device_ms=nc_ms,
@@ -3435,22 +4163,30 @@ def main() -> int:
                             key_hi=UNIVERSE),
                         make_host_mesh(SHARDS, device=dev)))
     lifecycle_phase(api, rng)
-    serve_res = serve_phase(args, rng)
-    gemma_res = serve_gemma3_phase(args,
-                                   np.random.default_rng(args.seed + 22))
+    res = {"serve": serve_phase(args, rng)}
+    # the phases from serve-gemma3 on draw from generators of their own:
+    # every other phase sees the same draws with or without them
+    res["serve-gemma3"] = serve_gemma3_phase(
+        args, np.random.default_rng(args.seed + 22))
+    res["serve-olmoe"] = serve_olmoe_phase(
+        args, np.random.default_rng(args.seed + 25))
+    res["moe-deepseek"] = moe_deepseek_phase(args)
+    res["vlm-internvl2"] = vlm_internvl2_phase(args)
     model_cpu_equals_cuda(args)
+    model_families_cpu_equals_cuda(args)
     attention_bwd_phase(torch.device("cuda"))
-    train_res = train_phase(args)
-    train_serve_res = train_serve_phase(args, train_res)
+    res["train"] = train_phase(args)
+    res["train-serve"] = train_serve_phase(args, res["train"])
+    res["train-hubert"] = train_hubert_phase(args)
     train_cpu_equals_cuda(args)
+    train_families_cpu_equals_cuda(args)
     train_restart_phase(args)
     facts = main_res["facts"]
     durability_phase(args, api, rng, card,
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))
     lat = latencies(torch.device("cuda"))
     rows = (kernel_report(main_res, lat["hbm"])
-            + attention_report(serve_res, gemma_res, train_res,
-                               train_serve_res)
+            + attention_report(res)
             + search_positions_report(main_res, api, rng, lat["l2"]))
     for row in rows:
         row["sharded_launches"] = sharded_res["counts"].get(row["name"], 0)

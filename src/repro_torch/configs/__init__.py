@@ -1,5 +1,8 @@
-"""Published architecture configs the port serves: the dense decoders
+"""Published architecture configs the port runs: the dense decoders
 (``llama3_2_1b``, ``qwen3_4b``, ``olmo_1b``, and ``gemma3_1b`` with its
-sliding-window local layers), plus the paper's store workload
+sliding-window local layers), the MoE decoders (``olmoe_1b_7b``;
+``deepseek_moe_16b`` with shared experts), the encoder-only audio model
+(``hubert_xlarge``) and the VLM (``internvl2_76b``, patch features from a
+stubbed vision frontend), plus the paper's store workload
 (``uruv_paper``).  Each model module's ``config()`` returns its
 :class:`repro_torch.config.ArchConfig`."""

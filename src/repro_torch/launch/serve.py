@@ -5,6 +5,11 @@ engine of the port, with seeded random weights.
       --requests 6 --max-new 8                       # full width, on cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \\
       --reduced --device cpu                         # tiny, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b \\
+      --max-len 512                                  # MoE, full width
+
+Every family with a decode step serves (dense, MoE, VLM as text); the
+encoder-only model has none and is refused.
 """
 
 from __future__ import annotations

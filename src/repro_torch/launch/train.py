@@ -4,9 +4,14 @@
       --reduced --steps 20 --device cpu            # tiny, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
       --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert_xlarge \\
+      --batch 8 --seq 512 --steps 6              # full width, on cuda
 
 ``--device`` defaults to ``cuda`` (raises without a card).  ``--reduced``
-trains the smoke-scale config; the full configs need a card.
+trains the smoke-scale config; the full configs need a card.  Every
+ported family trains: the decoders and MoE models on tokens, the VLM on
+tokens and patch features, the encoder-only model on frame embeddings
+(``data.pipeline.make_batch`` draws each family's inputs).
 """
 
 from __future__ import annotations

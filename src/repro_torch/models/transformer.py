@@ -1,14 +1,18 @@
-"""Transformer stack, dense family.
+"""Transformer stack (dense / MoE / VLM / audio-encoder families).
 
-A port of the JAX package's ``repro.models.transformer`` for the dense
-family.  Layers are *stacked* as there: every per-layer parameter carries
-a leading [L] axis.  ``lax.scan`` over layers becomes a Python loop, and
-each layer's attention window (``layer_windows``) is a plain ``int``, as
-the flash kernel takes it.
+A port of the JAX package's ``repro.models.transformer``.  Layers are
+*stacked* as there: every per-layer parameter carries a leading [L]
+axis.  ``lax.scan`` over layers becomes a Python loop, and each layer's
+attention window (``layer_windows``) is a plain ``int``, as the flash
+kernel takes it.  A MoE config swaps each layer's MLP for
+``moe.moe_fwd``; a VLM prepends the projected patch features to the
+token embeddings; the encoder-only (audio) model takes frame embeddings
+through ``in_norm`` and attends without the causal mask.
 
 API:
   init(cfg, gen)                      -> params
-  forward_train(cfg, params, tokens)  -> (logits [B, S, V], aux)
+  forward_train(cfg, params, tokens, patches=None, embeds=None)
+                                      -> (logits [B, S, V], aux)
   prefill(cfg, params, tokens, Smax)  -> (logits [B, S, V], cache)
   init_cache(cfg, B, Smax, ...)       -> {"k", "v"} [L, B, KVH, Smax, hd]
   decode_step(cfg, params, tokens [B], cache, lengths [B])
@@ -27,10 +31,12 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
-from repro_torch.models import common
+from repro_torch.models import common, moe
+from repro_torch.optim.adamw import tree_map
 
 
 def layer_windows(cfg: ArchConfig) -> np.ndarray:
@@ -43,40 +49,54 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or cfg.vlm is not None or cfg.encoder_only:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder family is ported "
-            "(MoE / VLM / encoder-only: see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_layer(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+    dev = gen.device
+    p = {
+        "ln1": common.init_norm(cfg, cfg.d_model, dev),
+        "attn": common.init_attention(cfg, gen),
+        "ln2": common.init_norm(cfg, cfg.d_model, dev),
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe.init_moe(cfg, gen)
+    else:
+        p["mlp"] = common.init_mlp(cfg, gen)
+    return p
 
 
 def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
     """Seeded random parameters on ``gen.device`` (fp32 ``param_dtype``),
     in the JAX package's layout.  The values follow ``gen``, not the JAX
-    PRNG: to carry JAX weights over use ``registry.params_from_numpy``."""
-    _dense_only(cfg)
+    PRNG: to carry JAX weights over use ``registry.params_from_numpy``.
+
+    Each stacked [L, ...] tensor is allocated once and each layer, drawn
+    in turn, is copied into its row, so the peak holds one layer beyond
+    the parameters (deepseek-moe-16b's are 66.7 GB)."""
     dev = gen.device
     params = {"tok": common.init_embed(cfg, gen)}
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": common.init_norm(cfg, cfg.d_model, dev),
-            "attn": common.init_attention(cfg, gen),
-            "ln2": common.init_norm(cfg, cfg.d_model, dev),
-            "mlp": common.init_mlp(cfg, gen),
-        })
-    params["layers"] = _stack(layers)
+    layers = None
+    for l in range(cfg.n_layers):
+        lp = _init_layer(cfg, gen)
+        if layers is None:
+            layers = tree_map(
+                lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), lp)
+        tree_map(lambda dst, src: dst[l].copy_(src), layers, lp)
+        del lp
+    params["layers"] = layers
     params["ln_f"] = common.init_norm(cfg, cfg.d_model, dev)
+    if cfg.vlm is not None:
+        params["projector"] = {
+            "w1": common._normal(gen, (cfg.vlm.patch_dim, cfg.d_model), cfg,
+                                 0.02),
+            "w2": common._normal(gen, (cfg.d_model, cfg.d_model), cfg, 0.02),
+        }
+    if cfg.encoder_only:
+        # audio frontend stub: frame features arrive at d_model; a learned
+        # input norm stands in for the conv feature projector
+        params["in_norm"] = common.init_norm(cfg, cfg.d_model, dev)
     return params
 
 
@@ -105,14 +125,25 @@ def _device(params: Dict) -> torch.device:
     return params["tok"]["embed"].device
 
 
+def _tensor(t, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(t) if not torch.is_tensor(t) else t,
+                           device=dev)
+
+
 def _tokens(tokens, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
-                           else tokens, device=dev).long()
+    return _tensor(tokens, dev).long()
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill) and decode
+# forward (train / prefill) and decode
 # ---------------------------------------------------------------------------
+
+def _ffn(cfg, lp, h):
+    """The layer's MLP, or its MoE: (y, aux dict or None)."""
+    if cfg.moe is not None:
+        return moe.moe_fwd(cfg, lp["moe"], h)
+    return common.mlp_fwd(cfg, lp["mlp"], h), None
+
 
 def _layer_fwd(cfg, lp, x, positions, window: int, causal: bool,
                return_kv: bool):
@@ -121,44 +152,72 @@ def _layer_fwd(cfg, lp, x, positions, window: int, causal: bool,
                              causal=causal, return_kv=return_kv)
     a, kv = (a[0], a[1:]) if return_kv else (a, None)
     x = x + a
-    h = common.apply_norm(cfg, lp["ln2"], x)
-    return x + common.mlp_fwd(cfg, lp["mlp"], h), kv
+    y, aux = _ffn(cfg, lp, common.apply_norm(cfg, lp["ln2"], x))
+    return x + y, kv, aux
 
 
-def _train_layer(cfg, lp, x, positions, window: int):
-    return _layer_fwd(cfg, lp, x, positions, window, True, False)[0]
+MOE_AUX = ("moe_balance", "moe_z", "moe_dropped")
 
 
-def forward_train(cfg: ArchConfig, params: Dict, tokens
-                  ) -> Tuple[torch.Tensor, Dict]:
-    """The forward of the training step: logits [B, S, V] and ``aux``
-    (the dense family's ``aux_loss`` is 0), differentiable in ``params``.
-    With ``cfg.remat`` and grad mode on, each layer keeps only its input
-    and reruns in the backward (its window passed as a Python int)."""
-    _dense_only(cfg)
+def _train_layer(cfg, lp, x, positions, window: int, causal: bool):
+    """(x, the layer's MoE aux (balance, z, dropped) or None): tensors
+    only, so they come out of ``checkpoint`` with ``x``."""
+    x, _, aux = _layer_fwd(cfg, lp, x, positions, window, causal, False)
+    return x, None if aux is None else tuple(aux[k] for k in MOE_AUX)
+
+
+def forward_train(cfg: ArchConfig, params: Dict, tokens=None, patches=None,
+                  embeds=None) -> Tuple[torch.Tensor, Dict]:
+    """The forward of the training step: logits [B, S, V] and ``aux``,
+    differentiable in ``params``.  ``tokens`` [B, S] for the decoders; a
+    VLM also takes ``patches`` [B, NP, patch_dim], projected and put
+    before the text (logits over NP + S rows); the encoder-only model
+    takes ``embeds`` [B, S, d_model] instead of tokens and no causal
+    mask.  ``aux["aux_loss"]`` is the sum over layers of each MoE layer's
+    balance + z + dropped share (0 for the other families), and a MoE
+    model's aux also holds each of the three's mean over layers.  With
+    ``cfg.remat`` and grad mode on, each layer keeps only its input and
+    reruns in the backward (its window passed as a Python int)."""
     dev = _device(params)
-    tokens = _tokens(tokens, dev)
-    x = common.embed_tokens(cfg, params["tok"], tokens)
-    positions = torch.arange(tokens.shape[1], device=dev)
+    cdt = common.dtype_of(cfg.compute_dtype)
+    causal = not cfg.encoder_only
+    if cfg.encoder_only:
+        x = common.apply_norm(cfg, params["in_norm"],
+                              _tensor(embeds, dev).to(cdt))
+    else:
+        x = common.embed_tokens(cfg, params["tok"], _tokens(tokens, dev))
+        if cfg.vlm is not None:
+            proj = params["projector"]
+            pe = _tensor(patches, dev).to(cdt) @ proj["w1"].to(cdt)
+            pe = F.gelu(pe, approximate="tanh") @ proj["w2"].to(cdt)
+            x = torch.cat([pe, x], dim=1)
+    positions = torch.arange(x.shape[1], device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for lp, window in zip(layer_list(cfg, params),
                           layer_windows(cfg).tolist()):
         if remat:
             # no randomness inside a layer: no RNG state to replay
-            x = checkpoint(_train_layer, cfg, lp, x, positions, int(window),
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_train_layer, cfg, lp, x, positions,
+                                int(window), causal, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = _train_layer(cfg, lp, x, positions, int(window))
+            x, aux = _train_layer(cfg, lp, x, positions, int(window), causal)
+        auxes.append(aux)
     x = common.apply_norm(cfg, params["ln_f"], x)
     logits = common.unembed(cfg, params["tok"], x)
-    return logits, {"aux_loss": torch.zeros((), device=dev)}
+    if cfg.moe is None:
+        return logits, {"aux_loss": torch.zeros((), device=dev)}
+    per_layer = torch.stack([torch.stack(a) for a in auxes])     # [L, 3]
+    out = {k: per_layer[:, i].mean() for i, k in enumerate(MOE_AUX)}
+    out["aux_loss"] = per_layer.sum(1).sum()
+    return logits, out
 
 
 def prefill(cfg: ArchConfig, params: Dict, tokens, Smax: int,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
     """Forward over a prompt batch, capturing the KV cache: (logits
     [B, S, V], cache with k/v valid on [:S] and zero after)."""
-    _dense_only(cfg)
     dev = _device(params)
     tokens = _tokens(tokens, dev)
     x = common.embed_tokens(cfg, params["tok"], tokens)
@@ -166,8 +225,8 @@ def prefill(cfg: ArchConfig, params: Dict, tokens, Smax: int,
     positions = torch.arange(S, device=dev)
     cache = init_cache(cfg, B, Smax, cache_dtype, device=dev)
     for l, window in enumerate(layer_windows(cfg).tolist()):
-        x, (k, v) = _layer_fwd(cfg, layer_params(params, l), x, positions,
-                               window, True, True)
+        x, (k, v), _ = _layer_fwd(cfg, layer_params(params, l), x,
+                                  positions, window, True, True)
         cache["k"][l, :, :, :S] = k.to(cache_dtype)
         cache["v"][l, :, :, :S] = v.to(cache_dtype)
     x = common.apply_norm(cfg, params["ln_f"], x)
@@ -189,11 +248,9 @@ def decode_step(cfg: ArchConfig, params: Dict, tokens, cache: Dict,
                 lengths) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence: (logits [B, V], the new cache).  The input
     cache is not written into."""
-    _dense_only(cfg)
     dev = _device(params)
     tokens = _tokens(tokens, dev)
-    lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(
-        lengths) else lengths, device=dev).int()
+    lengths = _tensor(lengths, dev).int()
     x = common.embed_tokens(cfg, params["tok"], tokens[:, None])  # [B,1,D]
     ks, vs = [], []
     for l, window in enumerate(layer_windows(cfg).tolist()):
@@ -203,8 +260,7 @@ def decode_step(cfg: ArchConfig, params: Dict, tokens, cache: Dict,
             cfg, lp["attn"], h, cache["k"][l], cache["v"][l], lengths,
             window=window)
         x = x + a
-        h = common.apply_norm(cfg, lp["ln2"], x)
-        x = x + common.mlp_fwd(cfg, lp["mlp"], h)
+        x = x + _ffn(cfg, lp, common.apply_norm(cfg, lp["ln2"], x))[0]
         ks.append(ck)
         vs.append(cv)
     x = common.apply_norm(cfg, params["ln_f"], x)

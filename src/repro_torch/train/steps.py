@@ -1,6 +1,8 @@
 """Step builders: loss, train_step (grad-accum, clip, AdamW), serve steps.
 
-A port of the JAX package's ``repro.train.steps`` for the dense family.
+A port of the JAX package's ``repro.train.steps`` for the transformer
+families: a batch holds ``tokens`` (decoders), ``tokens`` and
+``patches`` (VLM) or ``embeds`` (the encoder-only model).
 PyTorch runs eagerly, so a builder returns a plain function (nothing to
 ``jit``).  Gradients come from ``torch.autograd.grad`` over the
 parameter leaves; on the card the attention's gradient is the
@@ -39,8 +41,20 @@ def init_state(cfg: ArchConfig, gen: torch.Generator) -> TrainState:
                                        device=gen.device))
 
 
+def _forward(cfg: ArchConfig, params, batch):
+    """``forward_train`` on the batch's inputs for the config's family."""
+    fwd = get_model(cfg).forward_train
+    if cfg.encoder_only:
+        return fwd(cfg, params, embeds=batch["embeds"])
+    if cfg.vlm is not None:
+        return fwd(cfg, params, batch["tokens"], patches=batch["patches"])
+    return fwd(cfg, params, batch["tokens"])
+
+
 def loss_fn(cfg: ArchConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = get_model(cfg).forward_train(cfg, params, batch["tokens"])
+    logits, aux = _forward(cfg, params, batch)
+    if cfg.vlm is not None:         # the loss is over the text rows
+        logits = logits[:, cfg.vlm.n_patches:]
     loss, metrics = common.cross_entropy(logits, batch["labels"],
                                          batch["mask"])
     total = loss + aux.get("aux_loss", 0.0)
@@ -55,8 +69,12 @@ def loss_and_grads(cfg: ArchConfig, params, batch) -> Tuple[Dict, Dict]:
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     total, metrics = loss_fn(cfg, live, batch)
     leaves = tree_leaves(live)
-    grads = torch.autograd.grad(total, leaves)
-    by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+    # the encoder never reads its token table: that leaf gets a zero
+    # gradient, as in JAX; in every other family an unused leaf raises
+    grads = torch.autograd.grad(total, leaves,
+                                allow_unused=cfg.encoder_only)
+    by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, grads)}
     return (tree_map(lambda p: by_leaf[id(p)], live),
             {k: v.detach() for k, v in metrics.items()})
 
@@ -97,13 +115,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig):
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """Inference prefill: logits for a full prompt batch (no labels)."""
-    api = get_model(cfg)
+    """Inference prefill: logits for a full prompt batch (no labels; a
+    VLM's include its patch rows)."""
+    get_model(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch) -> torch.Tensor:
-        logits, _ = api.forward_train(cfg, params, batch["tokens"])
-        return logits
+        return _forward(cfg, params, batch)[0]
 
     return prefill_step
 

@@ -661,6 +661,8 @@ def _close(got, want, tol):
     (1, 4, 4, 200, 77, 40, False, 100),     # Skv < Sq, window, no causal
     (1, 2, 1, 77, 77, 20, True, 0),         # D % 8 != 0: plain-load staging
     (1, 2, 1, 90, 90, 200, True, 65),       # D > 128: 32-key tiles
+    (2, 16, 16, 512, 512, 80, False, 0),    # hubert-xlarge: D 80, no mask
+    (1, 16, 16, 300, 300, 128, True, 0),    # olmoe-1b-7b prefill, MHA
 ])
 def test_flash_attention_matches_twin(card, B, H, KVH, Sq, Skv, D, causal,
                                       win, dtype):
@@ -859,6 +861,8 @@ BWD_SHAPES = [                 # B, H, KVH, Sq, Skv, D, causal, window
     (1, 4, 2, 100, 100, 72, True, 0),       # D % 16 != 0: padded cp.async
     (1, 4, 2, 90, 90, 36, True, 20),        # D % 8 != 0: plain loads
     (1, 8, 2, 150, 200, 64, True, 0),       # Sq % 64 != 0, Sq != Skv, causal
+    (2, 16, 16, 512, 512, 80, False, 0),    # hubert-xlarge train: D 80
+    (1, 16, 16, 130, 130, 80, False, 0),    # ... ragged, D 80 padded
 ]
 
 
@@ -944,6 +948,24 @@ def test_flash_attention_bwd_masked_rows(card):
         _rel_close(a, b, BWD_TOL[torch.float32], "masked rows")
 
 
+def _attention_f64(q, k, v, *, causal: bool, window: int):
+    """The twin's arithmetic in float64 on the CPU (no -1e30 sentinel:
+    every row here sees a key)."""
+    q, k, v = (t.detach().cpu().double() for t in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q / q.shape[-1] ** 0.5, kx)
+    qi = torch.arange(q.shape[2])[:, None]
+    ki = torch.arange(k.shape[2])[None, :]
+    mask = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= qi - ki < window
+    p = torch.softmax(s.masked_fill(~mask, -torch.inf), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx)
+
+
 def test_attention_autograd_on_card(card):
     """``ops.attention`` under autograd: one forward and one backward
     launch, the CPU twins' gradient; without a gradient it is the forward
@@ -959,7 +981,15 @@ def test_attention_autograd_on_card(card):
     cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
     want = attention(*cpu, causal=True, window=24)
     want.backward(do.cpu())
-    _close(out.detach(), want.detach(), TOL[torch.float32])
+    try:
+        _close(out.detach(), want.detach(), TOL[torch.float32])
+    except AssertionError as e:    # name the side that left float64
+        ref = _attention_f64(q, k, v, causal=True, window=24)
+        side = {"card": float((out.detach().cpu().double() - ref)
+                              .abs().max()),
+                "cpu": float((want.detach().double() - ref).abs().max())}
+        raise AssertionError(f"{e}\neach side from float64: {side}") \
+            from None
     for a, b in zip(leaves, cpu):
         _rel_close(a.grad, b.grad, BWD_TOL[torch.float32], "autograd")
     with torch.no_grad():
@@ -1001,3 +1031,92 @@ def test_train_step_on_card_equals_cpu(card):
                           tree_leaves(st0.params)):
         dg, dc = pg.cpu() - p0, pc - p0
         assert float((dg - dc).norm()) <= 1e-2 * float(dc.norm())
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_moe_16b"])
+def test_moe_fwd_on_card_equals_cpu(card, arch, monkeypatch):
+    """Reduced MoE (fp32): the card routes by the CPU's choices (its gates
+    from its own probabilities), so the output and aux values hold within
+    1e-5 and the input's and weights' gradients within 1e-4 of their
+    largest element whatever the routers choose; the card's own choices
+    may differ from the CPU's only where the CPU's top-k margin is below
+    1e-5."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = get_arch(arch).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=8, top_k=2))
+    p0 = moe.init_moe(cfg, torch.Generator().manual_seed(1))
+    x0 = torch.randn(3, 40, cfg.d_model,
+                     generator=torch.Generator().manual_seed(2))
+    route, own, pin = moe.route, {}, []
+
+    def pinned(cfg_, p_, xt):
+        logits, probs, gate, choice = route(cfg_, p_, xt)
+        own[xt.device.type] = (choice.detach().sort(-1).values.cpu(),
+                               probs.detach().cpu())
+        if xt.device.type == "cpu":
+            pin.append(choice.detach())
+            return logits, probs, gate, choice
+        choice = pin[0].to(xt.device)
+        g = probs.gather(-1, choice)
+        return logits, probs, g / g.sum(-1, keepdim=True).clamp_min(1e-9), \
+            choice
+    monkeypatch.setattr(moe, "route", pinned)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), p0)
+        x = x0.to(dev, copy=True).requires_grad_()
+        y, aux = moe.moe_fwd(cfg, p, x)
+        grads = torch.autograd.grad((y * y).sum() + aux["moe_balance"],
+                                    [x] + tree_leaves(p))
+        out[dev] = (y.detach().cpu(),
+                    {k: float(v.detach()) for k, v in aux.items()},
+                    [g.cpu() for g in grads])
+    (yc, ac, gc), (yg, ag, gg) = out["cpu"], out["cuda"]
+    _close(yg, yc, 1e-5)
+    for k in ac:
+        assert abs(ag[k] - ac[k]) <= 1e-5 * max(1.0, abs(ac[k])), k
+    for a, b in zip(gg, gc):
+        _rel_close(a, b, 1e-4, "moe gradient")
+    (cc, pc), (cg, _) = own["cpu"], own["cuda"]
+    top = pc.sort(-1, descending=True).values
+    margin = top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]
+    differ = (cc != cg).any(-1)
+    assert not differ.any() or float(margin[differ].max()) < 1e-5, \
+        margin[differ]
+
+
+def test_moe_combine_is_bit_identical_on_card(card):
+    """olmoe's routing widths (64 experts, top-8) in bf16: two forward and
+    backward runs give the same output and gradients, bit for bit (every
+    token gathers its K slots; no atomic add in either direction)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch("olmoe_1b_7b"), d_model=512,
+                              compute_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, d_expert=256, capacity_factor=1.0))       # drops some
+    p = moe.init_moe(cfg, torch.Generator(device="cuda").manual_seed(3))
+    x = torch.randn(4, 256, 512, device="cuda").to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_()
+        y, aux = moe.moe_fwd(cfg, p, xi)
+        (g,) = torch.autograd.grad(y.float().square().sum(), xi)
+        runs.append((y, g, aux["moe_dropped"]))
+    torch.cuda.synchronize()
+    (y1, g1, d1), (y2, g2, d2) = runs
+    assert torch.equal(y1, y2) and torch.equal(g1, g2)
+    assert float(d1) == float(d2) and float(d1) > 0

@@ -1,12 +1,16 @@
-"""The port's dense transformer against the JAX package's, on the CPU.
+"""The port's transformer against the JAX package's, on the CPU.
 
 Reduced llama3.2-1b, qwen3-4b (qk-norm), olmo-1b (non-parametric
 LayerNorm) and gemma3-1b (head_dim != d_model / n_heads, one kv head,
 gelu, embedding scaling, and a sliding window of 8 on its local layer:
 ``global_every=2`` on both sides, so the two reduced layers are one local
-and one global) get the JAX weights through ``params_from_numpy``;
-forward, ``prefill`` and ``decode_step`` logits must agree at atol = rtol
-= 5e-3, the tolerance of ``tests/test_models_smoke.py``.  gemma3's
+and one global), the MoE decoders olmoe-1b-7b and deepseek-moe-16b
+(shared experts), the VLM internvl2-76b (forward with patches) and the
+encoder-only hubert-xlarge (forward on frame embeddings, no causal mask)
+get the JAX weights through ``params_from_numpy``; forward, ``prefill``
+and ``decode_step`` logits must agree at atol = rtol = 5e-3, the
+tolerance of ``tests/test_models_smoke.py``, and the MoE aux values at
+1e-5.  gemma3's
 prompts are longer than its window, so prefill and decode both cut it.  The decode path keeps
 its attention probabilities in fp32 where the JAX model rounds them to the
 cache's bf16 before the PV product — the one documented difference,
@@ -26,7 +30,7 @@ from repro.models import common as JC
 from repro.models import transformer as JT
 from repro.models.registry import get_model as j_get_model
 
-from repro_torch.config import MoEConfig, get_arch
+from repro_torch.config import MoEConfig, XLSTMConfig, get_arch
 from repro_torch.models import common as TC
 from repro_torch.models import transformer as TT
 from repro_torch.models.registry import get_model, params_from_numpy
@@ -37,6 +41,8 @@ from _torch_port import (  # noqa: F401  (the fixtures: autouse)
 pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b", "gemma3_1b"]
+MOE = ["olmoe_1b_7b", "deepseek_moe_16b"]
+OTHER = ["internvl2_76b", "hubert_xlarge"]
 TOL = dict(atol=5e-3, rtol=5e-3)
 # prompt length S and cache length Smax: gemma3's prompt passes its
 # reduced window of 8
@@ -53,7 +59,7 @@ def _reduced(arch, get):
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE + OTHER:
         jcfg = _reduced(arch, j_get_arch)
         cfg = _reduced(arch, get_arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -68,15 +74,19 @@ def _close(t, j):
                                **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE)
 def test_forward_prefill_decode_match_jax(models, arch):
     jcfg, cfg, jp, tp = models[arch]
     rng = np.random.default_rng(0)
     B, (S, Smax) = 2, SIZES.get(arch, (8, 12))
     toks = rng.integers(0, cfg.vocab, (B, S + 3)).astype(np.int32)
-    jl, _ = JT.forward_train(jcfg, jp, jnp.asarray(toks[:, :S]))
+    jl, jaux = JT.forward_train(jcfg, jp, jnp.asarray(toks[:, :S]))
     tl, aux = TT.forward_train(cfg, tp, toks[:, :S])
-    assert tl.shape == (B, S, cfg.vocab) and float(aux["aux_loss"]) == 0
+    assert tl.shape == (B, S, cfg.vocab) and set(aux) == set(jaux)
+    assert (float(aux["aux_loss"]) == 0) == (cfg.moe is None)
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]), atol=1e-5,
+                                   rtol=1e-5)
     _close(tl, jl)
     jl, jc = JT.prefill(jcfg, jp, jnp.asarray(toks[:, :S]), Smax)
     tl, tc = TT.prefill(cfg, tp, toks[:, :S], Smax)
@@ -98,10 +108,75 @@ def test_forward_prefill_decode_match_jax(models, arch):
         lens = lens + 1
 
 
+@pytest.mark.parametrize("arch", OTHER)
+def test_vlm_and_encoder_forward_match_jax(models, arch):
+    """internvl2: the projected patches before the text, causal over both
+    (logits for NP + S rows); hubert: frame embeddings through
+    ``in_norm``, no causal mask, an untied 504-class head."""
+    jcfg, cfg, jp, tp = models[arch]
+    rng = np.random.default_rng(5)
+    B, S = 2, 8
+    if cfg.encoder_only:
+        emb = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        jl, _ = JT.forward_train(jcfg, jp, embeds=jnp.asarray(emb))
+        tl, aux = TT.forward_train(cfg, tp, embeds=emb)
+        # no causal mask: a change to the last frame moves the first row
+        emb2 = emb.copy()
+        emb2[:, -1] += 1.0
+        tl2, _ = TT.forward_train(cfg, tp, embeds=emb2)
+        assert not torch.allclose(tl[:, 0], tl2[:, 0])
+        assert get_model(cfg).decode_step is None
+    else:
+        toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        pat = rng.standard_normal(
+            (B, cfg.vlm.n_patches, cfg.vlm.patch_dim)).astype(np.float32)
+        jl, _ = JT.forward_train(jcfg, jp, jnp.asarray(toks),
+                                 patches=jnp.asarray(pat))
+        tl, aux = TT.forward_train(cfg, tp, toks, patches=pat)
+        S += cfg.vlm.n_patches
+    assert tl.shape == (B, S, cfg.vocab) and float(aux["aux_loss"]) == 0
+    _close(tl, jl)
+
+
+def _old_init(cfg, gen):
+    """The dense ``init`` before its repair: every layer drawn as its own
+    tensors, then ``torch.stack``ed (two copies of the layers at once)."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+    dev = gen.device
+    params = {"tok": TC.init_embed(cfg, gen)}
+    params["layers"] = stack([{
+        "ln1": TC.init_norm(cfg, cfg.d_model, dev),
+        "attn": TC.init_attention(cfg, gen),
+        "ln2": TC.init_norm(cfg, cfg.d_model, dev),
+        "mlp": TC.init_mlp(cfg, gen),
+    } for _ in range(cfg.n_layers)])
+    params["ln_f"] = TC.init_norm(cfg, cfg.d_model, dev)
+    return params
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_gives_the_stacked_layers_bit_for_bit(arch):
+    """``init`` allocates each [L, ...] tensor once and copies each layer
+    in: the same seeded dense weights, leaf for leaf and bit for bit, as
+    the stacking it replaced, at 3 layers and full vocabulary width."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=3)
+    new = TT.init(cfg, torch.Generator().manual_seed(9))
+    old = _old_init(cfg, torch.Generator().manual_seed(9))
+    a, b = jax.tree_util.tree_flatten_with_path(new), \
+        jax.tree_util.tree_flatten_with_path(old)
+    assert a[1] == b[1]
+    for (path, x), (_, y) in zip(a[0], b[0]):
+        assert x.dtype == y.dtype and torch.equal(x, y), path
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_equals_step_decode(models, arch):
     """Prefill + decode gives the step-by-step decode's logits, and the
-    last step equals the forward's last position."""
+    last step equals the forward's last position.  (Dense only: a MoE
+    layer's capacity depends on how many tokens a call routes.)"""
     _, cfg, _, tp = models[arch]
     rng = np.random.default_rng(1)
     B, S = 2, SIZES.get(arch, (8, 12))[0]
@@ -190,10 +265,16 @@ def test_windowed_decode_raises_and_registry_guards(models):
     _, cfg, _, _ = models["llama3_2_1b"]
     moe = dataclasses.replace(cfg, moe=MoEConfig(n_experts=4, top_k=2,
                                                  d_expert=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(dataclasses.replace(cfg, encoder_only=True))
+    assert get_model(moe).decode_step is TT.decode_step
+    for arch in MOE + OTHER:
+        api = get_model(models[arch][1])
+        assert api.forward_train is TT.forward_train
+        enc = arch == "hubert_xlarge"
+        assert (api.decode_step is None) == enc == (api.init_cache is None)
+    with pytest.raises(NotImplementedError, match="zamba.*ROADMAP"):
+        get_model(dataclasses.replace(cfg, hybrid_attn_every=2))
+    with pytest.raises(NotImplementedError, match="xLSTM.*ROADMAP"):
+        get_model(dataclasses.replace(cfg, xlstm=XLSTMConfig()))
     windowed = dataclasses.replace(cfg, window=3, global_every=2,
                                    n_layers=4)
     assert TT.layer_windows(windowed).tolist() == [3, 0, 3, 0]

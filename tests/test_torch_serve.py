@@ -332,7 +332,23 @@ def test_engine_matches_jax_engine(tiny):
     tokens, prefix reuse, prefix table and table counters.  The requests
     share a system prompt and include follow-up turns, so both cold
     prefills and prefix copies with step-by-step feeds run."""
-    jcfg, cfg, jp, params = tiny
+    _engines_agree(*tiny)
+
+
+def test_moe_engine_matches_jax_engine():
+    """Reduced olmoe-1b-7b served by both engines.  A MoE layer's
+    capacity couples the tokens of a call (a decode step's slots, a
+    prefill's prompt), so a request's tokens depend on its batch-mates:
+    the port must follow the JAX engine step for step, not a per-request
+    reference."""
+    jcfg = j_get_arch("olmoe_1b_7b").reduced()
+    cfg = get_arch("olmoe_1b_7b").reduced()
+    jp = j_get_model(jcfg).init(jcfg, jax.random.key(1))
+    _engines_agree(jcfg, cfg, jp,
+                   params_from_numpy(cfg, jax.device_get(jp), "cpu"))
+
+
+def _engines_agree(jcfg, cfg, jp, params):
     rng = np.random.default_rng(4)
     system = rng.integers(0, cfg.vocab, 6).tolist()
 
@@ -369,3 +385,16 @@ def test_launch_serve_on_cpu_and_cuda_default(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch_serve.build_engine("llama3_2_1b", reduced=True)
+
+
+def test_launch_serve_new_families_on_cpu(capsys):
+    """The MoE decoders serve through the CLI; the encoder-only hubert has
+    no decode step, so ``serve`` refuses it (as the JAX package has no
+    serve step for it)."""
+    for arch in ("olmoe_1b_7b", "deepseek_moe_16b"):
+        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--requests", "3", "--max-new", "3"])
+        assert "tok/s" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="encoder-only"):
+        launch_serve.build_engine("hubert_xlarge", reduced=True,
+                                  device="cpu")

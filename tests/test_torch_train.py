@@ -3,7 +3,11 @@
 Reduced llama3.2-1b (fp32 compute) from JAX-initialised parameters
 carried across as numpy (``params_from_numpy``), the same batches
 (``make_batch`` is bit-equal, ``tests/test_torch_data.py``) and the same
-optimizer config on both sides.  Tolerances, each measured well inside:
+optimizer config on both sides; one step of each other family (reduced
+olmoe-1b-7b: gradients through the MoE dispatch, gates and combine, and
+its aux losses; hubert-xlarge on frame embeddings; internvl2-76b with
+patches, the loss over the text rows), with and without remat or
+gradient accumulation.  Tolerances, each measured well inside:
 
   * ``cross_entropy``: 1e-6 (fp32, summation order);
   * one AdamW ``update`` on the same gradients: params, m, v within 1e-7,
@@ -68,9 +72,9 @@ PARAM_TOL = dict(atol=1e-6, rtol=0)
 OPT = dict(warmup_steps=2, total_steps=10)
 
 
-def _cfgs(**over):
-    jcfg = dataclasses.replace(j_get_arch("llama3_2_1b").reduced(), **over)
-    cfg = dataclasses.replace(get_arch("llama3_2_1b").reduced(), **over)
+def _cfgs(arch="llama3_2_1b", **over):
+    jcfg = dataclasses.replace(j_get_arch(arch).reduced(), **over)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     return jcfg, cfg
 
@@ -224,6 +228,45 @@ def test_train_step_variants_match_jax(jinit, over):
     jcfg, cfg = _cfgs(**over)
     jstate, tstate = _train_both(jcfg, cfg, jinit, 2, B=4)
     _assert_tree_close(jstate.params, tstate.params, **PARAM_TOL)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("olmoe_1b_7b", {}), ("olmoe_1b_7b", {"remat": False}),
+    ("hubert_xlarge", {}), ("hubert_xlarge", {"accum_steps": 2}),
+    ("internvl2_76b", {}), ("internvl2_76b", {"accum_steps": 2}),
+], ids=["olmoe", "olmoe-no_remat", "hubert", "hubert-accum2", "internvl2",
+        "internvl2-accum2"])
+def test_family_train_step_matches_jax(arch, over):
+    """The loss, its metrics (the MoE aux means too) and every gradient
+    against ``jax.value_and_grad`` of the JAX ``loss_fn``; then one train
+    step each (loss, grad norm, parameters); then the prefill step's
+    logits (a VLM's patch rows included)."""
+    jcfg, cfg = _cfgs(arch, **over)
+    jstate = JS.init_state(jcfg, jax.random.key(2))
+    B, S = 4, 16
+    jb = j_make_batch(jcfg, B, S, 0)
+    tb = make_batch(cfg, B, S, 0, device="cpu")
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: JS.loss_fn(jcfg, p, jb), has_aux=True)(jstate.params)
+    tp = params_from_numpy(cfg, jax.device_get(jstate.params), "cpu")
+    tg, tm = TS.loss_and_grads(cfg, tp, tb)
+    assert set(tm) == set(jm)
+    if cfg.moe is not None:
+        assert {"moe_balance", "moe_z", "moe_dropped"} <= set(tm)
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=1e-7)
+    _assert_tree_close(jg, tg, atol=1e-7, rtol=1e-5)
+    js, ts = _train_both(jcfg, cfg, jstate, 1, B=B, S=S)
+    _assert_tree_close(js.params, ts.params, **PARAM_TOL)
+    if over:
+        return
+    fwd = {k: v for k, v in jb.items() if k not in ("labels", "mask")}
+    jlog = JS.make_prefill_step(jcfg)(jstate.params, fwd)
+    tlog = TS.make_prefill_step(cfg)(tp, {k: tb[k] for k in fwd})
+    assert tlog.shape == jlog.shape
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=5e-3,
+                               rtol=5e-3)
 
 
 def test_prefill_and_serve_steps_match_jax(jinit):
@@ -428,6 +471,14 @@ def test_loop_resumes_from_its_checkpoint(tmp_path):
 
 def test_train_cli_on_cpu(capsys):
     train_cli.main(["--arch", "llama3_2_1b", "--reduced", "--steps", "3",
+                    "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert "done:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "hubert_xlarge",
+                                  "internvl2_76b"])
+def test_train_cli_new_families_on_cpu(capsys, arch):
+    train_cli.main(["--arch", arch, "--reduced", "--steps", "2",
                     "--batch", "2", "--seq", "16", "--device", "cpu"])
     assert "done:" in capsys.readouterr().out
 
