@@ -99,6 +99,28 @@ Phases, one line each (any failure exits non-zero):
                engine on the same weights serves the same stream and must
                give the same tokens; tokens/s, prefill and decode ms,
                peak memory, a decode step's mean ``moe_dropped``
+  7f. serve-zamba2 / serve-xlstm  the same engine with zamba2-2.7b (54
+               Mamba2 layers, d 2560, state 64, one shared attention block
+               of 32 x 80 every 6 layers, ff 10,240, vocab 32,000) and
+               xlstm-350m (24 blocks in 3 groups of 7 mLSTM + 1 sLSTM,
+               d 1024, mLSTM heads of 256, vocab 50,304) at their
+               published widths, seeded weights, bf16 compute: 4 slots,
+               max_len 256, one wave of 4 requests on a shared 48-token
+               system prompt + 16 own tokens, 32 new tokens each, the
+               prompts fed token by token.  Every prefix-table answer
+               against a host dict; a new engine on the same weights
+               given the same requests gives the same tokens; zamba2's
+               ``decode_attention`` launches = 9 x its ``decode_step``
+               calls (xLSTM: none); a one-request oracle (a fresh 1-slot
+               engine in fp32 compute, 32-token prompt, 16 new tokens):
+               ``forward_train`` with the scan's products exact over the
+               48 tokens the engine fed (the prompt's last token twice:
+               reference fault R4) ranks each chosen token within 1e-2 x
+               the row's max |logit| of the row's maximum (with the
+               scan's bf16 roundings, in fp32 and in bf16, printed);
+               tokens/s, decode and prompt-feed ms, peak memory, and one
+               decode step profiled (``serve-zamba2-profile``: kernels,
+               busy ms, idle share)
   7d. moe-deepseek  deepseek-moe-16b at its published width (28 layers,
                2 shared + 64 routed experts top-6 of 1408; 16.7 B
                parameters, 66.7 GB: its first 20 layers when the card's
@@ -120,7 +142,9 @@ Phases, one line each (any failure exits non-zero):
                own bf16 logits are.  Then olmoe-1b-7b and
                deepseek-moe-16b (prefill 16 + 8 decode steps),
                hubert-xlarge (64 frames) and internvl2-76b (256 patches +
-               16 tokens) at full width with 2 layers, under the same
+               16 tokens) at full width with 2 layers, zamba2-2.7b with 6
+               layers and xlstm-350m with 8 (forward over 64 tokens, then
+               8 decode steps from a zero cache), under the same
                gates; every MoE run but the CPU's fp32 one routes by that
                run's choices, and the card's fp32 router may choose
                otherwise only at a top-k margin below 1e-4 (each run's
@@ -178,8 +202,9 @@ Phases, one line each (any failure exits non-zero):
                1e-4, update within 1e-2 (relative norm); bf16 no more than
                2x as far from the CPU's fp32 as the CPU's own bf16; then
                one fp32 step of reduced olmoe-1b-7b (and its aux
-               metrics; the card again without remat), hubert-xlarge and
-               internvl2-76b under the fp32 gates
+               metrics; the card again without remat), hubert-xlarge,
+               internvl2-76b, zamba2-2.7b and xlstm-350m under the fp32
+               gates
   8f. train-restart  reduced llama3.2-1b on the card through
                ``run_with_restarts`` with a ``CheckpointManager`` under
                ``build/``: 12 steps, and 12 with crashes at 6 and 10; losses
@@ -230,9 +255,10 @@ Phases, one line each (any failure exits non-zero):
                read first by a pointer chase over 256 MiB
                (``csrc/latency_probe.cu``); the same probe over a warm
                4 MiB cycle reads the L2 load latency (both on the
-               ``[latency]`` line).  Four more attention rows read the
+               ``[latency]`` line).  Five more attention rows read the
                new families' shapes, each with its phase's launches:
-               olmoe-1b-7b's prefill and decode (serve-olmoe), and
+               olmoe-1b-7b's prefill and decode (serve-olmoe),
+               zamba2-2.7b's decode (serve-zamba2: MHA, head_dim 80), and
                hubert-xlarge's forward and backward without the causal
                mask at head_dim 80 (train-hubert).  The ``locate`` lines give one
                lookup, ``backend.locate`` at the main path's widest
@@ -367,6 +393,17 @@ HUBERT_STEPS = 6              # ... steps on one batch (it must fit it)
 ROUTE_MARGIN = 1e-4           # MoE model check: a fp32 route may differ
                               # only where its top-k margin is below this
 FAMILY_PREFILL = 16           # cpu==cuda-model MoE: prompt, then 8 steps
+RECURRENT_WAVES = 1           # serve-zamba2 / serve-xlstm: waves of 4 (one:
+                              # two took a slow host's run to 1,158 s)
+RECURRENT_SYSTEM = 48         # ... a shared prompt ...
+RECURRENT_OWN = 16            # ... each request's own tokens after it ...
+RECURRENT_NEW = 32            # ... new tokens a request ...
+RECURRENT_MAX_LEN = 256       # ... the engine's cache rows a slot
+ORACLE_PROMPT = 32            # ... one-request oracle: prompt tokens ...
+ORACLE_NEW = 16               # ... and new tokens
+ORACLE_GAP = 1e-2             # ... chosen logit's gap to the row max, of max|.|
+RECURRENT_TOKENS = 64         # cpu==cuda-model zamba2 / xLSTM: forward tokens
+ULP = 2.0 ** -23              # the recurrent families' spread: embed x (1+ULP)
 HUBERT_FRAMES = 64            # cpu==cuda-model hubert: frames a sequence
 TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
 TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
@@ -2422,6 +2459,224 @@ def serve_olmoe_phase(args, rng) -> dict:
     return dict(counts=counts, calls=rec.calls, n=rec.n)
 
 
+def ulp_nudged(params: dict) -> dict:
+    """``params`` with the token table one fp32 ulp larger, x (1 + 2^-23).
+    The recurrent families' scan rounds fp32 operands to bf16 (the JAX
+    semantics), so an ulp of difference upstream (another summation
+    order: the card's, or the CPU's at another thread count) flips a few
+    roundings and carries far: a CPU run on these parameters reads how
+    far, the families' own spread, against which the card is held."""
+    return dict(params, tok=dict(params["tok"], embed=params["tok"]["embed"]
+                                 * (1 + ULP)))
+
+
+def oracle_run(cfg, params, prompt) -> tuple:
+    """One request alone in a fresh 1-slot engine: (its tokens, the
+    tokens the engine fed: the prompt, its last token again at the first
+    tick, ROADMAP reference fault R4, then all but the last generated
+    token)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    solo = Engine(cfg, params, n_slots=1, max_len=RECURRENT_MAX_LEN,
+                  device="cuda")
+    one = Request(rid=0, prompt=prompt, max_new=ORACLE_NEW)
+    solo.run([one])
+    check(len(one.out) == ORACLE_NEW, f"{cfg.name}: the oracle request did "
+                                      "not finish")
+    return one.out, prompt + prompt[-1:] + one.out[:-1]
+
+
+def oracle_gaps(api, cfg, params, n_prompt: int, out, fed, *,
+                exact_scan: bool) -> tuple:
+    """``forward_train`` over the tokens an engine fed: each token the
+    engine chose, its gap to its row's best logit over the row's max
+    |logit| (the largest), and how many argmaxes differ.  With
+    ``exact_scan`` the chunked scan multiplies its operands in fp32
+    without rounding them to bf16 first (``mamba2._bf`` swapped for the
+    call): the chunked algebra, against the engine's fp32 recurrence."""
+    from repro_torch.models import mamba2
+
+    keep = mamba2._bf
+    if exact_scan:
+        mamba2._bf = lambda x: x.float()
+    try:
+        with torch.no_grad():
+            logits, _ = api.forward_train(cfg, params, np.array(
+                [fed], np.int32))
+    finally:
+        mamba2._bf = keep
+    rows = logits[0, n_prompt:].float()                         # [16, V]
+    want = torch.as_tensor(out, device=rows.device)
+    chosen = rows.gather(1, want[:, None])[:, 0]
+    gap = ((rows.max(1).values - chosen)
+           / rows.abs().max(1).values).cpu().numpy()
+    return float(gap.max()), int((rows.argmax(1) != want).sum())
+
+
+def serve_recurrent_phase(args, rng, arch: str, tag: str) -> dict:
+    """A recurrent family at its published width through the serving
+    engine (``launch.serve.build_engine``): zamba2-2.7b (54 Mamba2
+    layers and one shared attention block every 6) or xlstm-350m (3
+    groups of 7 mLSTM + 1 sLSTM), seeded weights, bf16 compute, 4 slots,
+    ``max_len`` 256, ``RECURRENT_WAVES`` wave of 4 requests on a shared
+    48-token system prompt + 16 own tokens, 32 new tokens each.  The engine feeds these
+    families' prompts token by token (one ``decode_step`` over every
+    slot a token: the JAX engine's slot leak, ROADMAP reference fault R3,
+    mirrored), so no check assumes a request's tokens are independent of
+    its batch-mates.  Checks: every prefix-table answer against the host
+    dict; a new engine on the same weights given the same request stream
+    gives the same tokens; zamba2 launches ``decode_attention`` once per
+    shared-block occurrence a ``decode_step`` (9), xLSTM never; then a
+    one-request oracle on the same weights in fp32 compute
+    (``oracle_run``, ``oracle_gaps``): ``forward_train`` with the scan's
+    products exact must rank each token the engine chose within
+    ``ORACLE_GAP`` x the row's max |logit| of the row's maximum.  The
+    same forward with the scan's bf16 roundings (the JAX semantics), in
+    fp32 and in the served bf16, is printed, not gated: at full width
+    those roundings move xlstm-350m's forward ~10 % (relative norm) off
+    its own recurrence, on the CPU too, where the exact scan stands
+    4e-05 off."""
+    import repro_torch.api as api
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import common
+    from repro_torch.optim.adamw import tree_leaves
+
+    free = _free_card()
+    t0 = time.perf_counter()
+    eng = serve.build_engine(arch, seed=args.seed, slots=4,
+                             max_len=RECURRENT_MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    hybrid = cfg.hybrid_attn_every > 0
+    check(cfg.compute_dtype == "bfloat16" and (
+        (cfg.d_model, cfg.n_layers, cfg.ssm.d_state, cfg.resolved_head_dim)
+        == (2560, 54, 64, 80) if hybrid else
+        (cfg.d_model, cfg.n_layers, cfg.xlstm.head_dim) == (1024, 24, 256)),
+        f"{tag}: {cfg.name} is not {arch}'s published width")
+    n_occ = cfg.n_layers // cfg.hybrid_attn_every if hybrid else 0
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
+    plans = []
+    submit = eng.coalescer.submit
+
+    def logged(plan):
+        fut = submit(plan)
+        plans.append((plan, fut))
+        return fut
+    eng.coalescer.submit = logged
+    decode_ms, feed_ms = [], []
+    eng._decode = timed_calls(eng._decode, decode_ms)
+    eng._step_single = timed_calls(eng._step_single, feed_ms)
+    system = rng.integers(0, cfg.vocab, RECURRENT_SYSTEM).tolist()
+    waves = [[(w * 4 + i, system
+               + rng.integers(0, cfg.vocab, RECURRENT_OWN).tolist())
+              for i in range(4)] for w in range(RECURRENT_WAVES)]
+
+    def requests():
+        return [[serve.Request(rid=rid, prompt=list(p),
+                               max_new=RECURRENT_NEW)
+                 for rid, p in wave] for wave in waves]
+    reqs_by_wave = requests()
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with AttnRecorder(common) as rec:
+        for wave in reqs_by_wave:
+            eng.run(wave)
+        view = eng.snapshot_view()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check_table(api, plans, view, eng, tag)
+    reqs = [r for wave in reqs_by_wave for r in wave]
+    check(all(r.done and len(r.out) == RECURRENT_NEW for r in reqs),
+          f"{tag}: a request did not finish")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"{tag}: a token outside the vocabulary")
+    check(all(r.prefix_reused == 0 for r in reqs),
+          f"{tag}: a recurrent request reused a prefix")
+    for name in PASS_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never ran on the {tag} path")
+    steps_run = len(decode_ms)
+    check(counts.get("decode_attention", 0) == n_occ * steps_run
+          and rec.n.get("decode_attention", 0) == n_occ * steps_run
+          and counts.get("flash_attention", 0) == 0,
+          f"{tag}: {counts} attention launches for {steps_run} decode "
+          f"steps of {n_occ} shared-block occurrences")
+    # one more decode step over the 4 slots under the profiler: where a
+    # step's time goes (the engine's state is not advanced)
+    idle = np.zeros(eng.n_slots, np.int32)
+    train_profile(lambda: eng.api.decode_step(cfg, eng.params, idle,
+                                              eng.cache, eng.lengths),
+                  float(np.mean(decode_ms)), tag=f"{tag}-profile")
+    # the same request stream through a new engine on the same weights
+    again = serve.Engine(cfg, eng.params, n_slots=4,
+                         max_len=RECURRENT_MAX_LEN, device="cuda")
+    rerun = requests()
+    for wave in rerun:
+        again.run(wave)
+    check([r.out for w in rerun for r in w] == [r.out for r in reqs],
+          f"{tag}: a rerun of the same request stream gave other tokens")
+    del again
+    # one request alone, against the chunked forward over the tokens the
+    # engine fed: gated in fp32 compute with the scan's products exact
+    # (the chunked algebra against the recurrence); printed with the
+    # scan's bf16 roundings (the JAX semantics) in fp32 and in bf16
+    import dataclasses
+
+    prompt = rng.integers(0, cfg.vocab, ORACLE_PROMPT).tolist()
+    gaps = {}
+    for cdt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=cdt)
+        out, fed = oracle_run(c, eng.params, prompt)
+        for exact in ((True, False) if cdt == "float32" else (False,)):
+            gaps[cdt, exact] = oracle_gaps(eng.api, c, eng.params,
+                                           ORACLE_PROMPT, out, fed,
+                                           exact_scan=exact)
+    gap, differ = gaps["float32", True]
+    check(np.isfinite(gap) and gap <= ORACLE_GAP,
+          f"{tag}: a generated token stands {gap:.3e} of the row's max "
+          f"|logit| below the exact-scan fp32 forward's best "
+          f"(> {ORACLE_GAP})")
+    new_tokens = sum(len(r.out) for r in reqs)
+    ticks = steps_run - len(feed_ms)
+    kw = (dict(shared_block_every=cfg.hybrid_attn_every, occurrences=n_occ,
+               d_state=cfg.ssm.d_state,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x"
+                     f"{cfg.resolved_head_dim}")
+          if hybrid else
+          dict(groups=cfg.n_layers // (cfg.xlstm.m_per_group + 1),
+               m_per_group=cfg.xlstm.m_per_group,
+               mlstm_head_dim=cfg.xlstm.head_dim))
+    say(tag, model=cfg.name, layers=cfg.n_layers, d=cfg.d_model,
+        vocab=cfg.vocab, params=n_params, **kw,
+        free_gib_before=f"{free:.1f}", requests=len(reqs),
+        build_s=f"{build_s:.3f}", wall_s=f"{wall_s:.3f}",
+        new_tokens=new_tokens, tokens_per_s=f"{new_tokens / wall_s:.2f}",
+        decode_calls=steps_run, prompt_feed_steps=len(feed_ms), ticks=ticks,
+        decode_ms_per_step=f"{np.mean(decode_ms):.3f}",
+        prompt_feed_ms_per_token=f"{np.mean(feed_ms):.3f}",
+        decode_attention_launches=counts.get("decode_attention", 0),
+        rerun_identical=True,
+        oracle_max_gap=f"{gap:.3e}",
+        oracle_argmax_differ=f"{differ}/{ORACLE_NEW}",
+        oracle_gate=f"fp32_exact_scan_gap<={ORACLE_GAP}",
+        oracle_bf16_scan_fp32=json.dumps(
+            [float(f"{gaps['float32', False][0]:.3e}"),
+             gaps["float32", False][1]]).replace(" ", ""),
+        oracle_bf16_scan_bf16=json.dumps(
+            [float(f"{gaps['bfloat16', False][0]:.3e}"),
+             gaps["bfloat16", False][1]]).replace(" ", ""),
+        max_memory_allocated_mib=f"{peak / 2**20:.1f}",
+        table_entries=len(view),
+        launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+    del eng
+    return dict(counts=counts, calls=rec.calls, n=rec.n)
+
+
 def moe_deepseek_phase(args) -> dict:
     """deepseek-moe-16b at its published width (2 shared + 64 routed
     experts, top-6) through ``transformer.prefill`` and ``decode_step``:
@@ -2719,13 +2974,24 @@ def route_diff(calls, ref) -> tuple:
 
 
 def model_families_cpu_equals_cuda(args) -> None:
-    """The MoE, encoder-only and VLM families at full width with 2 layers
-    each, the same weights on the CPU and on the card: olmoe-1b-7b and
+    """The MoE, encoder-only, VLM and recurrent families at full width,
+    the same weights on the CPU and on the card: with 2 layers each,
+    olmoe-1b-7b and
     deepseek-moe-16b prefill ``FAMILY_PREFILL`` tokens (B = 2) and take 8
     teacher-forced decode steps (the prefill's last row and each step's
     logits compared); hubert-xlarge's forward over ``HUBERT_FRAMES``
     frames (B = 2, every row); internvl2-76b's forward over 256 patches
-    and 16 tokens (every row), through ``make_prefill_step``.
+    and 16 tokens (every row), through ``make_prefill_step``; zamba2-2.7b
+    with 6 layers (one shared-attention occurrence) and xlstm-350m with 8
+    (one group): ``forward_train`` over ``RECURRENT_TOKENS`` tokens (B =
+    2, every row), then 8 teacher-forced ``decode_step``s from a zero
+    cache (its KV rows in the compute dtype), each step's logits.  Their
+    forward's fp32 rows run the scan's bf16 roundings, where an ulp of
+    upstream difference flips a few and carries to 1e-3-1e-2 of the
+    logits (the CPU against itself at 1 and 8 threads alike): those rows
+    are held within ``BF16_SPREAD`` x the CPU's own spread under a
+    one-ulp nudge of the token table (``ulp_nudged``); their decode rows
+    under ``FP32_TOL``.
 
     The gates are phase ``cpu==cuda-model``'s (fp32 within ``FP32_TOL``;
     the card's bf16 no more than ``BF16_SPREAD`` times as far from the
@@ -2740,6 +3006,7 @@ def model_families_cpu_equals_cuda(args) -> None:
     from repro_torch.config import get_arch
     from repro_torch.models import moe
     from repro_torch.models import transformer as TT
+    from repro_torch.models.registry import get_model
     from repro_torch.train import steps
 
     def to(tree, dev):
@@ -2747,16 +3014,22 @@ def model_families_cpu_equals_cuda(args) -> None:
             return {k: to(v, dev) for k, v in tree.items()}
         return tree.to(dev)
 
-    for arch in ("olmoe_1b_7b", "deepseek_moe_16b", "hubert_xlarge",
-                 "internvl2_76b"):
+    for arch, layers in (("olmoe_1b_7b", 2), ("deepseek_moe_16b", 2),
+                         ("hubert_xlarge", 2), ("internvl2_76b", 2),
+                         ("zamba2_2_7b", 6), ("xlstm_350m", 8)):
         t_arch = time.perf_counter()
-        base = dataclasses.replace(get_arch(arch), n_layers=2)
+        base = dataclasses.replace(get_arch(arch), n_layers=layers)
+        api = get_model(base)
+        recurrent = api.init is not TT.init
         # drawn on the card (fast), kept on the host
-        params = to(TT.init(base, torch.Generator(device="cuda")
-                            .manual_seed(args.seed)), "cpu")
+        params = to(api.init(base, torch.Generator(device="cuda")
+                             .manual_seed(args.seed)), "cpu")
         torch.cuda.empty_cache()
         rng = np.random.default_rng(args.seed + 2)
-        if base.moe is not None:
+        if recurrent:
+            toks = rng.integers(0, base.vocab, (2, RECURRENT_TOKENS)) \
+                .astype(np.int32)
+        elif base.moe is not None:
             S0 = FAMILY_PREFILL
             toks = rng.integers(0, base.vocab, (2, S0 + 8)).astype(np.int32)
         elif base.encoder_only:
@@ -2769,9 +3042,24 @@ def model_families_cpu_equals_cuda(args) -> None:
                          (1, base.vlm.n_patches, base.vlm.patch_dim))
                          * 0.5).astype(np.float32)}
 
-        def logits_on(cfg, dev):
-            p = to(params, dev)
+        def logits_on(cfg, dev, tree=params):
+            p = to(tree, dev)
             with torch.no_grad():
+                if recurrent:
+                    lg, _ = api.forward_train(cfg, p, toks)
+                    rows = [lg.float().cpu().reshape(-1, cfg.vocab)]
+                    del lg
+                    cache = api.init_cache(
+                        cfg, 2, RECURRENT_TOKENS, torch.float32
+                        if cfg.compute_dtype == "float32" else
+                        torch.bfloat16, device=dev)
+                    lens = np.zeros(2, np.int32)
+                    for t in range(8):
+                        lg, cache = api.decode_step(cfg, p, toks[:, t],
+                                                    cache, lens)
+                        lens += 1
+                        rows.append(lg.float().cpu())
+                    return torch.cat(rows).numpy()
                 if cfg.encoder_only:
                     lg, _ = TT.forward_train(
                         cfg, p, embeds=torch.as_tensor(emb, device=dev))
@@ -2795,6 +3083,7 @@ def model_families_cpu_equals_cuda(args) -> None:
                     rows.append(lg.float().cpu())
                 return torch.stack(rows).numpy()
 
+        cfg32 = dataclasses.replace(base, compute_dtype="float32")
         out, routes, secs = {}, {}, {}
         for cdt in ("float32", "bfloat16"):
             cfg = dataclasses.replace(base, compute_dtype=cdt)
@@ -2812,8 +3101,27 @@ def model_families_cpu_equals_cuda(args) -> None:
         ref = out["float32", "cpu"]
         err32 = float(np.abs(out["float32", "cuda"] - ref).max())
         # the largest |error| over its allowance atol + rtol |ref|
-        use = float((np.abs(out["float32", "cuda"] - ref)
-                     / (FP32_TOL + FP32_TOL * np.abs(ref))).max())
+        use_rows = (np.abs(out["float32", "cuda"] - ref)
+                    / (FP32_TOL + FP32_TOL * np.abs(ref))).max(1)
+        kw = {}
+        if recurrent:
+            # the forward's rows run the scan's bf16 roundings: held
+            # within BF16_SPREAD x the CPU's own ulp spread; the decode's
+            # rows (fp32 states) under the fp32 gate
+            n_fwd = 2 * RECURRENT_TOKENS
+            ulp = logits_on(cfg32, "cpu", ulp_nudged(params))
+            spread = float(np.abs(ulp[:n_fwd] - ref[:n_fwd]).max())
+            err_fwd = float(np.abs(out["float32", "cuda"][:n_fwd]
+                                   - ref[:n_fwd]).max())
+            check(err_fwd <= BF16_SPREAD * spread,
+                  f"cpu==cuda model: {base.name} fp32 forward logits "
+                  f"{err_fwd:.3e} apart, over {BF16_SPREAD}x the CPU's "
+                  f"own ulp spread {spread:.3e}")
+            kw.update(fwd_err_fp32=f"{err_fwd:.3e}",
+                      fwd_ulp_spread_cpu=f"{spread:.3e}",
+                      fwd_gate=f"cuda<={BF16_SPREAD}x_ulp_spread")
+            use_rows = use_rows[n_fwd:]
+        use = float(use_rows.max())
         check(use <= 1.0,
               f"cpu==cuda model: {base.name} fp32 logits differ (max abs "
               f"{err32:.3e}, {use:.2f} of the gate)")
@@ -2823,8 +3131,8 @@ def model_families_cpu_equals_cuda(args) -> None:
               f"cpu==cuda model: {base.name}: the card's bf16 logits stand "
               f"{spread_cuda:.3e} from fp32, more than {BF16_SPREAD}x the "
               f"CPU's {spread_cpu:.3e}")
-        kw = {"fp32_gate_use": f"{use:.3f}",
-              "max_abs_logit": f"{float(np.abs(ref).max()):.3f}"}
+        kw.update({"fp32_gate_use": f"{use:.3f}",
+                   "max_abs_logit": f"{float(np.abs(ref).max()):.3f}"})
         if base.moe is not None:
             r0 = routes["float32", "cpu"]
             flips = {key: route_diff(routes[key], r0) for key in
@@ -3428,8 +3736,11 @@ def train_cpu_equals_cuda(args) -> None:
 
 
 def train_families_cpu_equals_cuda(args) -> None:
-    """One train step of reduced olmoe-1b-7b, hubert-xlarge and
-    internvl2-76b (fp32 compute) on the CPU and on the card from the same
+    """One train step of reduced olmoe-1b-7b, hubert-xlarge,
+    internvl2-76b, zamba2-2.7b and xlstm-350m (fp32 compute; the last two
+    through the SSD scan's bf16-rounded products, their gradients held
+    within ``FP32_TOL`` or ``BF16_SPREAD`` x the CPU's own spread under
+    ``ulp_nudged``, whichever is larger) on the CPU and on the card from the same
     state and batch, under phase ``train-cpu==cuda``'s fp32 gates: loss,
     grad norm and each leaf's clipped gradient within ``FP32_TOL``, the
     update within ``TRAIN_UPDATE_TOL``.  olmoe's gradient runs through
@@ -3442,23 +3753,29 @@ def train_families_cpu_equals_cuda(args) -> None:
     from repro_torch.config import get_arch
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import moe
-    from repro_torch.models import transformer as TT
+    from repro_torch.models.registry import get_model
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.train import steps
 
     opt = adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP,
                             total_steps=TRAIN_STEPS)
-    for arch in ("olmoe_1b_7b", "hubert_xlarge", "internvl2_76b"):
+    for arch in ("olmoe_1b_7b", "hubert_xlarge", "internvl2_76b",
+                 "zamba2_2_7b", "xlstm_350m"):
         cfg = get_arch(arch).reduced()
-        params = TT.init(cfg, torch.Generator().manual_seed(args.seed))
+        params = get_model(cfg).init(cfg, torch.Generator().manual_seed(
+            args.seed))
         p0 = tree_leaves(params)
-        runs = [("cpu", cfg), ("cuda", cfg)]
+        scan = cfg.hybrid_attn_every > 0 or cfg.xlstm is not None
+        runs = [("cpu", cfg, params), ("cuda", cfg, params)]
         if cfg.moe is not None:
-            runs.append(("cuda", dataclasses.replace(cfg, remat=False)))
+            runs.append(("cuda", dataclasses.replace(cfg, remat=False),
+                         params))
+        if scan:
+            runs.append(("cpu", cfg, ulp_nudged(params)))
         out = []
-        for dev, c in runs:
-            p = tree_map(lambda t: t.to(dev, copy=True), params)
+        for dev, c, tree in runs:
+            p = tree_map(lambda t: t.to(dev, copy=True), tree)
             st = steps.TrainState(p, adamw.init(p), torch.zeros(
                 (), dtype=torch.int32, device=dev))
             batch = make_batch(c, 4, 32, 0, args.seed, device=dev)
@@ -3492,8 +3809,16 @@ def train_families_cpu_equals_cuda(args) -> None:
                   f"train-cpu==cuda: {cfg.name} fp32 {k} {a} != {b}")
         m32 = max(_rel_norm(a, b) for a, b in zip(card["m"], ref["m"]))
         d32 = max(_rel_norm(a, b) for a, b in zip(card["d"], ref["d"]))
-        check(m32 <= FP32_TOL, f"train-cpu==cuda: {cfg.name} fp32 gradient "
-                               f"off by {m32:.3e} > {FP32_TOL}")
+        grad_gate = FP32_TOL
+        if scan:
+            # the scan's bf16 roundings: the CPU's own spread under a
+            # one-ulp nudge of the token table sets the scale
+            spread = max(_rel_norm(a, b) for a, b in
+                         zip(out[-1]["m"], ref["m"]))
+            grad_gate = max(FP32_TOL, BF16_SPREAD * spread)
+            kw = dict(grad_ulp_spread_cpu=f"{spread:.3e}")
+        check(m32 <= grad_gate, f"train-cpu==cuda: {cfg.name} fp32 "
+                                f"gradient off by {m32:.3e} > {grad_gate}")
         check(d32 <= TRAIN_UPDATE_TOL, f"train-cpu==cuda: {cfg.name} fp32 "
                                        f"update off by {d32:.3e}")
         say("train-cpu==cuda", model=cfg.name, reduced=True,
@@ -3503,7 +3828,7 @@ def train_families_cpu_equals_cuda(args) -> None:
             grad_norm_cpu=f"{ref['met']['grad_norm']:.6f}",
             grad_norm_cuda=f"{card['met']['grad_norm']:.6f}",
             grad_err_fp32=f"{m32:.3e}", update_err_fp32=f"{d32:.3e}",
-            gate_fp32=f"{','.join(keys)},grad<={FP32_TOL},"
+            gate_fp32=f"{','.join(keys)},grad<={grad_gate:.3e},"
                       f"update<={TRAIN_UPDATE_TOL}", **kw)
 
 
@@ -3942,7 +4267,8 @@ def attention_report(res: dict) -> list:
     prefill; the decode with its window and, on the same inputs, without
     it: a global layer's call), each with the serve-gemma3 phase's
     launches of that variant; the flash backward at the train phase's
-    inputs; then olmoe-1b-7b's prefill and decode (serve-olmoe) and
+    inputs; then olmoe-1b-7b's prefill and decode (serve-olmoe),
+    zamba2-2.7b's decode (serve-zamba2: MHA at head_dim 80) and
     hubert-xlarge's forward and backward (train-hubert: no causal mask,
     head_dim 80), each with its phase's launches.  ``res`` maps a phase
     to its result (``counts``, and ``calls`` where it kept inputs)."""
@@ -3979,6 +4305,12 @@ def attention_report(res: dict) -> list:
         rows.append(attention_reading(name, a, kw,
                                       {"serve-olmoe": olmoe["n"][name]},
                                       reading))
+    zamba = res["serve-zamba2"]
+    _, a, kw = zamba["calls"]["decode_attention"]
+    rows.append(attention_reading(
+        "decode_attention", a, kw,
+        {"serve-zamba2": zamba["n"]["decode_attention"]},
+        "zamba2-2.7b decode, MHA, D 80"))
     reading = "hubert-xlarge train, no causal mask, D 80"
     rows.append(attention_reading(
         "flash_attention", hubert["calls"]["flash_attention"][1],
@@ -4170,6 +4502,12 @@ def main() -> int:
         args, np.random.default_rng(args.seed + 22))
     res["serve-olmoe"] = serve_olmoe_phase(
         args, np.random.default_rng(args.seed + 25))
+    res["serve-zamba2"] = serve_recurrent_phase(
+        args, np.random.default_rng(args.seed + 26), "zamba2_2_7b",
+        "serve-zamba2")
+    res["serve-xlstm"] = serve_recurrent_phase(
+        args, np.random.default_rng(args.seed + 27), "xlstm_350m",
+        "serve-xlstm")
     res["moe-deepseek"] = moe_deepseek_phase(args)
     res["vlm-internvl2"] = vlm_internvl2_phase(args)
     model_cpu_equals_cuda(args)

@@ -7,9 +7,14 @@ engine of the port, with seeded random weights.
       --reduced --device cpu                         # tiny, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b \\
       --max-len 512                                  # MoE, full width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_2_7b \\
+      --max-len 256                                  # hybrid, full width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_350m \\
+      --reduced --device cpu                         # xLSTM, tiny
 
-Every family with a decode step serves (dense, MoE, VLM as text); the
-encoder-only model has none and is refused.
+Every family with a decode step serves (dense, MoE, VLM as text, the
+hybrid zamba2 and the xLSTM, whose prompts the engine feeds token by
+token); the encoder-only model has none and is refused.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@
 
 ``--device`` defaults to ``cuda`` (raises without a card).  ``--reduced``
 trains the smoke-scale config; the full configs need a card.  Every
-ported family trains: the decoders and MoE models on tokens, the VLM on
-tokens and patch features, the encoder-only model on frame embeddings
+ported family trains: the decoders, the MoE models and the hybrid
+(zamba2) and xLSTM models on tokens, the VLM on tokens and patch
+features, the encoder-only model on frame embeddings
 (``data.pipeline.make_batch`` draws each family's inputs).
 """
 

@@ -13,7 +13,7 @@ the card (``kernels.flash_attention.ops``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.decode_attention.ops import decode
 from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.optim.adamw import tree_map
 
 NEG_INF = -1e30
 
@@ -33,6 +34,40 @@ def dtype_of(name: str) -> torch.dtype:
 def _normal(gen: torch.Generator, shape, cfg: ArchConfig, scale: float):
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=dtype_of(cfg.param_dtype)) * scale
+
+
+def stacked(n: int, draw: Callable[[], Dict]) -> Dict:
+    """``n`` calls of ``draw`` stacked on a leading [n] axis, as the JAX
+    package's ``vmap``-ed inits lay layers out.  Each stacked tensor is
+    allocated once and each draw, made in turn, is copied into its row,
+    so the peak holds one draw beyond the result."""
+    out = None
+    for l in range(n):
+        one = draw()
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), one)
+        tree_map(lambda dst, src: dst[l].copy_(src), out, one)
+        del one
+    return out
+
+
+def unstack(tree: Dict, n: int) -> List[Dict]:
+    """The ``n`` rows of a stacked [n, ...] tree, split by one ``unbind``
+    a tensor, whose gradient is one stack (a per-row index would scatter
+    into a zero [n, ...] tensor for every row)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def row(tree, i: int):
+    """Row ``i`` of every tensor of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: row(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(row(v, i) for v in tree)
+    return tree[i]
 
 
 # ---------------------------------------------------------------------------

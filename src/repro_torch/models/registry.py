@@ -1,7 +1,7 @@
 """Uniform model API of the port: the transformer families (dense,
 MoE, VLM and the encoder-only audio model, which has no decode step),
-plus the bridge that carries parameters between the port and the JAX
-package."""
+the hybrid (zamba) and the xLSTM families, plus the bridge that carries
+parameters between the port and the JAX package."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,16 +24,16 @@ class ModelAPI:
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
-    """The transformer API for the dense, MoE, VLM and encoder-only
-    families (the encoder has no cache and no decode step, as in JAX);
-    the hybrid (zamba) and xLSTM families raise until their port lands
-    (ROADMAP.md)."""
-    for family, present in (("hybrid (zamba)", cfg.hybrid_attn_every > 0),
-                            ("xLSTM", cfg.xlstm is not None)):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: the {family} family is not ported yet "
-                "(see ROADMAP.md)")
+    """The family's API, resolved as the JAX registry resolves it: zamba
+    where ``hybrid_attn_every > 0``, xLSTM where ``cfg.xlstm`` is set, else
+    the transformer (the encoder-only model has no cache and no decode
+    step)."""
+    if cfg.hybrid_attn_every > 0:
+        return ModelAPI(zamba.init, zamba.forward_train, zamba.init_cache,
+                        zamba.decode_step)
+    if cfg.xlstm is not None:
+        return ModelAPI(xlstm.init, xlstm.forward_train, xlstm.init_cache,
+                        xlstm.decode_step)
     dec = None if cfg.encoder_only else transformer.decode_step
     cache = None if cfg.encoder_only else transformer.init_cache
     return ModelAPI(transformer.init, transformer.forward_train, cache, dec)
@@ -44,7 +44,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None) -> Dict:
     stacked [L, ...], e.g. ``jax.device_get(params)``) as the port's
     parameters on ``device`` (default cuda): same keys (``moe/{router,
     w1, w3, w2, shared}``, ``projector/{w1, w2}`` and ``in_norm`` with
-    the rest), same layouts, same dtypes."""
+    the rest; zamba's ``mamba`` stack and ``shared`` block; xLSTM's
+    ``mlstm`` and ``slstm`` stacks), same layouts, same dtypes.  Tuples
+    cross as tuples, so a decode cache (xLSTM's sLSTM ``(c, n, h)``)
+    crosses too."""
     from repro_torch.core.store import resolve_device
 
     get_model(cfg)
@@ -53,6 +56,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None) -> Dict:
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(conv(v) for v in t)
         return torch.as_tensor(np.array(t), device=dev)
     return conv(tree)
 
@@ -63,4 +68,6 @@ def params_to_numpy(params: Dict) -> Dict:
     trained parameters handed to the JAX engine)."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(params_to_numpy(v) for v in params)
     return params.detach().cpu().numpy()

@@ -36,7 +36,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import common, moe
-from repro_torch.optim.adamw import tree_map
 
 
 def layer_windows(cfg: ArchConfig) -> np.ndarray:
@@ -77,15 +76,8 @@ def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
     the parameters (deepseek-moe-16b's are 66.7 GB)."""
     dev = gen.device
     params = {"tok": common.init_embed(cfg, gen)}
-    layers = None
-    for l in range(cfg.n_layers):
-        lp = _init_layer(cfg, gen)
-        if layers is None:
-            layers = tree_map(
-                lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), lp)
-        tree_map(lambda dst, src: dst[l].copy_(src), layers, lp)
-        del lp
-    params["layers"] = layers
+    params["layers"] = common.stacked(cfg.n_layers,
+                                      lambda: _init_layer(cfg, gen))
     params["ln_f"] = common.init_norm(cfg, cfg.d_model, dev)
     if cfg.vlm is not None:
         params["projector"] = {
@@ -102,23 +94,13 @@ def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
 
 def layer_params(params: Dict, l: int) -> Dict:
     """Layer ``l``'s parameters (views into the stacked [L, ...] tensors)."""
-    def pick(t):
-        return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[l]
-    return pick(params["layers"])
+    return common.row(params["layers"], l)
 
 
 def layer_list(cfg: ArchConfig, params: Dict) -> List[Dict]:
-    """Every layer's parameters, split off the stacked [L, ...] tensors by
-    one ``unbind`` each, whose gradient is one stack (a per-layer index
-    would scatter into a zero [L, ...] tensor for every layer)."""
-    def split(t):
-        if isinstance(t, dict):
-            parts = {k: split(v) for k, v in t.items()}
-            return [{k: v[l] for k, v in parts.items()}
-                    for l in range(cfg.n_layers)]
-        return torch.unbind(t, 0)
-    return split(params["layers"])
+    """Every layer's parameters (``common.unstack`` of the stacked
+    [L, ...] tensors)."""
+    return common.unstack(params["layers"], cfg.n_layers)
 
 
 def _device(params: Dict) -> torch.device:

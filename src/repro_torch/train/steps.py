@@ -1,8 +1,9 @@
 """Step builders: loss, train_step (grad-accum, clip, AdamW), serve steps.
 
-A port of the JAX package's ``repro.train.steps`` for the transformer
-families: a batch holds ``tokens`` (decoders), ``tokens`` and
-``patches`` (VLM) or ``embeds`` (the encoder-only model).
+A port of the JAX package's ``repro.train.steps`` for every family: a
+batch holds ``tokens`` (the decoders, MoE, hybrid and xLSTM models),
+``tokens`` and ``patches`` (VLM) or ``embeds`` (the encoder-only
+model).
 PyTorch runs eagerly, so a builder returns a plain function (nothing to
 ``jit``).  Gradients come from ``torch.autograd.grad`` over the
 parameter leaves; on the card the attention's gradient is the

@@ -373,6 +373,36 @@ def test_masked_row_convention_follows_the_kernel():
     _close(l, jl, 2e-5)
 
 
+def _attention_f64(q, k, v, *, causal: bool, window: int):
+    """The twin's arithmetic in float64 (every row here sees a key)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q / q.shape[-1] ** 0.5, kx)
+    qi = torch.arange(q.shape[2])[:, None]
+    ki = torch.arange(k.shape[2])[None, :]
+    mask = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= qi - ki < window
+    p = torch.softmax(s.masked_fill(~mask, -torch.inf), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx)
+
+
+def test_flash_twin_holds_float64():
+    """The CPU twin's fp32 output within 2e-5 of float64 arithmetic, at the
+    inputs of the card's ``test_attention_autograd_on_card`` (which holds
+    the card's output to the same float64 reference)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g) for s in (
+        (2, 8, 70, 64), (2, 2, 70, 64), (2, 2, 70, 64)))
+    got = attention(q, k, v, causal=True, window=24)
+    want = _attention_f64(q, k, v, causal=True, window=24)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
 def test_wrappers_refuse_other_devices_and_bad_shapes():
     q = torch.zeros(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="device"):

@@ -6,11 +6,14 @@ gelu, embedding scaling, and a sliding window of 8 on its local layer:
 ``global_every=2`` on both sides, so the two reduced layers are one local
 and one global), the MoE decoders olmoe-1b-7b and deepseek-moe-16b
 (shared experts), the VLM internvl2-76b (forward with patches) and the
-encoder-only hubert-xlarge (forward on frame embeddings, no causal mask)
-get the JAX weights through ``params_from_numpy``; forward, ``prefill``
+encoder-only hubert-xlarge (forward on frame embeddings, no causal mask),
+the hybrid zamba2-2.7b (Mamba2 layers and a shared attention block) and
+xlstm-350m (mLSTM and sLSTM blocks) get the JAX weights through ``params_from_numpy``; forward, ``prefill``
 and ``decode_step`` logits must agree at atol = rtol = 5e-3, the
 tolerance of ``tests/test_models_smoke.py``, and the MoE aux values at
-1e-5.  gemma3's
+1e-5.  The two recurrent families have no prefill: their decode steps
+run from a zero cache, the caches compared at the same tolerance.
+gemma3's
 prompts are longer than its window, so prefill and decode both cut it.  The decode path keeps
 its attention probabilities in fp32 where the JAX model rounds them to the
 cache's bf16 before the PV product — the one documented difference,
@@ -30,10 +33,13 @@ from repro.models import common as JC
 from repro.models import transformer as JT
 from repro.models.registry import get_model as j_get_model
 
-from repro_torch.config import MoEConfig, XLSTMConfig, get_arch
+from repro_torch.config import MoEConfig, SSMConfig, XLSTMConfig, get_arch
 from repro_torch.models import common as TC
 from repro_torch.models import transformer as TT
+from repro_torch.models import xlstm as TX
+from repro_torch.models import zamba as TZ
 from repro_torch.models.registry import get_model, params_from_numpy
+from repro_torch.optim.adamw import tree_leaves
 
 from _torch_port import (  # noqa: F401  (the fixtures: autouse)
     fresh_jax_caches,
@@ -43,6 +49,7 @@ pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 ARCHS = ["llama3_2_1b", "qwen3_4b", "olmo_1b", "gemma3_1b"]
 MOE = ["olmoe_1b_7b", "deepseek_moe_16b"]
 OTHER = ["internvl2_76b", "hubert_xlarge"]
+SSM = ["zamba2_2_7b", "xlstm_350m"]
 TOL = dict(atol=5e-3, rtol=5e-3)
 # prompt length S and cache length Smax: gemma3's prompt passes its
 # reduced window of 8
@@ -59,7 +66,7 @@ def _reduced(arch, get):
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for arch in ARCHS + MOE + OTHER:
+    for arch in ARCHS + MOE + OTHER + SSM:
         jcfg = _reduced(arch, j_get_arch)
         cfg = _reduced(arch, get_arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -106,6 +113,41 @@ def test_forward_prefill_decode_match_jax(models, arch):
         tl, tc = TT.decode_step(cfg, tp, nt, tc, lens)
         _close(tl, jl)
         lens = lens + 1
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_recurrent_forward_decode_match_jax(models, arch):
+    """``forward_train``, then 12 teacher-forced decode steps from a zero
+    cache on both sides: each step's logits and the final caches against
+    JAX's, and the last step against the forward's last position (the
+    recurrent form against the chunked one)."""
+    jcfg, cfg, jp, tp = models[arch]
+    japi, api = j_get_model(jcfg), get_model(cfg)
+    rng = np.random.default_rng(6)
+    B, S, Smax = 2, 12, 16
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    jl, jaux = japi.forward_train(jcfg, jp, jnp.asarray(toks))
+    tl, aux = api.forward_train(cfg, tp, toks)
+    assert tl.shape == (B, S, cfg.vocab) and set(aux) == set(jaux)
+    assert float(aux["aux_loss"]) == 0
+    _close(tl, jl)
+    j_dec = jax.jit(japi.decode_step, static_argnums=0)
+    jc = japi.init_cache(jcfg, B, Smax)
+    tc = api.init_cache(cfg, B, Smax, device="cpu")
+    lens = np.zeros(B, np.int32)
+    for t in range(S):
+        jo, jc = j_dec(jcfg, jp, jnp.asarray(toks[:, t]), jc,
+                       jnp.asarray(lens))
+        to, tc = api.decode_step(cfg, tp, toks[:, t], tc, lens)
+        _close(to, jo)
+        lens = lens + 1
+    jleaves = jax.tree.leaves(jax.device_get(jc))
+    tleaves = [t.float().numpy() for t in tree_leaves(tc)]
+    assert [a.shape for a in tleaves] == [a.shape for a in jleaves]
+    for a, b in zip(tleaves, jleaves):
+        np.testing.assert_allclose(a.astype(np.float32),
+                                   np.asarray(b, np.float32), **TOL)
+    np.testing.assert_allclose(to.numpy(), tl[:, -1].numpy(), **TOL)
 
 
 @pytest.mark.parametrize("arch", OTHER)
@@ -240,8 +282,9 @@ def test_windowed_decode_at_a_full_cache_matches_jax(models):
 def test_windowed_decode_raises_and_registry_guards(models):
     """Windowed decode no longer raises: ``attention_decode`` with a
     window matches the JAX one at lengths 0, inside the window, past it
-    and at a full cache.  The registry still refuses the families that
-    are not ported."""
+    and at a full cache.  The registry resolves every family as the JAX
+    registry does: the transformer's API for MoE, VLM and the encoder,
+    zamba's for the hybrid config and xLSTM's for the recurrent one."""
     jcfg, cfg, jp, tp = models["gemma3_1b"]
     lp = TT.layer_params(tp, 0)["attn"]
     jlp = jax.tree.map(lambda a: a[0], jp["layers"])["attn"]
@@ -271,10 +314,16 @@ def test_windowed_decode_raises_and_registry_guards(models):
         assert api.forward_train is TT.forward_train
         enc = arch == "hubert_xlarge"
         assert (api.decode_step is None) == enc == (api.init_cache is None)
-    with pytest.raises(NotImplementedError, match="zamba.*ROADMAP"):
-        get_model(dataclasses.replace(cfg, hybrid_attn_every=2))
-    with pytest.raises(NotImplementedError, match="xLSTM.*ROADMAP"):
-        get_model(dataclasses.replace(cfg, xlstm=XLSTMConfig()))
+    hybrid = get_model(models["zamba2_2_7b"][1])
+    assert (hybrid.forward_train, hybrid.decode_step, hybrid.init_cache) \
+        == (TZ.forward_train, TZ.decode_step, TZ.init_cache)
+    rec = get_model(models["xlstm_350m"][1])
+    assert (rec.forward_train, rec.decode_step, rec.init_cache) \
+        == (TX.forward_train, TX.decode_step, TX.init_cache)
+    assert get_model(dataclasses.replace(
+        cfg, hybrid_attn_every=2, ssm=SSMConfig())).init is TZ.init
+    assert get_model(dataclasses.replace(
+        cfg, xlstm=XLSTMConfig())).init is TX.init
     windowed = dataclasses.replace(cfg, window=3, global_every=2,
                                    n_layers=4)
     assert TT.layer_windows(windowed).tolist() == [3, 0, 3, 0]

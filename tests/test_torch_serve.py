@@ -6,7 +6,9 @@ engine cases of ``tests/test_data_serve.py`` on the port's ``Engine``;
 the coalescer's dispatch log is replayed through the JAX client as well
 as the port's, and must give bit-equal per-request results.  A JAX engine
 and a port engine with the same weights and requests must generate the
-same tokens, reuse the same prefixes and show the same prefix table.
+same tokens, reuse the same prefixes and show the same prefix table,
+for the transformer, MoE and the two recurrent families (zamba2 and
+xLSTM, whose prompts are fed token by token).
 """
 
 import collections
@@ -348,6 +350,52 @@ def test_moe_engine_matches_jax_engine():
                    params_from_numpy(cfg, jax.device_get(jp), "cpu"))
 
 
+@pytest.mark.parametrize("arch", ["zamba2_2_7b", "xlstm_350m"])
+def test_recurrent_engine_matches_jax_engine(arch):
+    """Reduced zamba2-2.7b and xlstm-350m served by both engines, then the
+    input that shows the JAX engine's slot leak (ROADMAP, reference fault
+    R3): a prompt fed token by token advances every slot's state, and an
+    admitted slot keeps its last request's state, so request A's tokens
+    depend on what ran before it and beside it.  The port mirrors the
+    leak: in each of A alone, A after B in one slot and A beside B in two
+    slots (B admitted first) it gives the JAX engine's tokens (the JAX
+    engine's decode calls waited for: ``_jax_engine``)."""
+    jcfg = j_get_arch(arch).reduced()
+    cfg = get_arch(arch).reduced()
+    jp = j_get_model(jcfg).init(jcfg, jax.random.key(0))
+    params = params_from_numpy(cfg, jax.device_get(jp), "cpu")
+    _engines_agree(jcfg, cfg, jp, params)
+    a, b = [5, 6, 7, 8], list(range(9, 15))
+    for n_slots, before, beside in ((1, False, False), (1, True, False),
+                                    (2, False, True)):
+        je = _jax_engine(jcfg, jp, n_slots=n_slots, max_len=40)
+        te = Engine(cfg, params, n_slots=n_slots, max_len=40, device="cpu")
+        outs = []
+        for eng, req in ((je, JRequest), (te, Request)):
+            if before:
+                eng.run([req(rid=1, prompt=b, max_new=12)])
+            reqs = [req(rid=0, prompt=a, max_new=6)]
+            if beside:      # B is admitted first, into slot 0
+                reqs.insert(0, req(rid=1, prompt=b, max_new=12))
+            eng.run(reqs)
+            outs.append([r.out for r in reqs])
+        assert outs[1] == outs[0], (n_slots, before, beside)
+
+
+def _jax_engine(jcfg, jp, **kw) -> JEngine:
+    """A JAX engine whose decode calls finish before they return.  The
+    engine passes ``jnp.asarray(self.lengths)``, which on the CPU shares
+    the numpy buffer, and increments ``self.lengths`` right after the
+    call: with JAX's asynchronous dispatch the decode may read the
+    lengths before or after that increment (ROADMAP, reference fault
+    R5), so its tokens vary from run to run at a near-tie.  Waiting for
+    each call gives the engine's intended order, every time."""
+    eng = JEngine(jcfg, jp, **kw)
+    decode = eng._decode
+    eng._decode = lambda *a: jax.block_until_ready(decode(*a))
+    return eng
+
+
 def _engines_agree(jcfg, cfg, jp, params):
     rng = np.random.default_rng(4)
     system = rng.integers(0, cfg.vocab, 6).tolist()
@@ -357,7 +405,7 @@ def _engines_agree(jcfg, cfg, jp, params):
                                      int(rng.integers(2, 5))).tolist()
     first = [turn(system) for _ in range(3)]
     waves = [first, [turn(first[1]), turn(first[2]), turn(first[0])]]
-    je = JEngine(jcfg, jp, n_slots=3, max_len=40)
+    je = _jax_engine(jcfg, jp, n_slots=3, max_len=40)
     te = Engine(cfg, params, n_slots=3, max_len=40, device="cpu")
     for w, prompts in enumerate(waves):
         jr = [JRequest(rid=i, prompt=p, max_new=4)
@@ -369,7 +417,8 @@ def _engines_agree(jcfg, cfg, jp, params):
         assert [r.out for r in tr] == [r.out for r in jr]
         assert [r.prefix_reused for r in tr] == \
             [r.prefix_reused for r in jr]
-    assert any(r.prefix_reused for r in tr)
+    # only the transformer families copy a cached prefix's KV rows
+    assert any(r.prefix_reused for r in tr) == te._is_tf
     assert te.snapshot_view() == je.snapshot_view()
     bounds = [(0, 1 << 30), ((1 << 30) + 1, T.KEY_DOMAIN_HI)]
     assert te.snapshot_views(bounds) == je.snapshot_views(bounds)
@@ -388,10 +437,11 @@ def test_launch_serve_on_cpu_and_cuda_default(capsys):
 
 
 def test_launch_serve_new_families_on_cpu(capsys):
-    """The MoE decoders serve through the CLI; the encoder-only hubert has
-    no decode step, so ``serve`` refuses it (as the JAX package has no
-    serve step for it)."""
-    for arch in ("olmoe_1b_7b", "deepseek_moe_16b"):
+    """The MoE decoders and the recurrent families serve through the CLI;
+    the encoder-only hubert has no decode step, so ``serve`` refuses it
+    (as the JAX package has no serve step for it)."""
+    for arch in ("olmoe_1b_7b", "deepseek_moe_16b", "zamba2_2_7b",
+                 "xlstm_350m"):
         launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                            "--requests", "3", "--max-new", "3"])
         assert "tok/s" in capsys.readouterr().out

@@ -7,7 +7,8 @@ optimizer config on both sides; one step of each other family (reduced
 olmoe-1b-7b: gradients through the MoE dispatch, gates and combine, and
 its aux losses; hubert-xlarge on frame embeddings; internvl2-76b with
 patches, the loss over the text rows), with and without remat or
-gradient accumulation.  Tolerances, each measured well inside:
+gradient accumulation; reduced zamba2-2.7b and xlstm-350m, whose
+gradients run through the SSD scan's bf16-rounded products.  Tolerances, each measured well inside:
 
   * ``cross_entropy``: 1e-6 (fp32, summation order);
   * one AdamW ``update`` on the same gradients: params, m, v within 1e-7,
@@ -17,7 +18,8 @@ gradient accumulation.  Tolerances, each measured well inside:
     2e-5 (fp32, the flash-attention tolerance of ``tests/test_kernels.py``);
   * train steps (loss, ``grad_norm``, parameters, moments): loss and norm
     within rtol 1e-5, parameters within atol 1e-6, the crash-restart
-    tolerances of ``tests/test_checkpoint_fault.py``;
+    tolerances of ``tests/test_checkpoint_fault.py`` (xLSTM's mLSTM
+    parameters after one step: 1e-5, ``SCAN_PARAM_TOL``);
   * compression, the straggler monitor and checkpoints: exact.
 
 Train checkpoints cross in both directions: the port's tree-path names
@@ -69,6 +71,7 @@ pytest_plugins = ("_jax_maps",)   # keeps every test under the map limit
 
 STEP_TOL = dict(rtol=1e-5)
 PARAM_TOL = dict(atol=1e-6, rtol=0)
+SCAN_PARAM_TOL = dict(atol=1e-5, rtol=0)    # xLSTM's mLSTM leaves, one step
 OPT = dict(warmup_steps=2, total_steps=10)
 
 
@@ -234,13 +237,21 @@ def test_train_step_variants_match_jax(jinit, over):
     ("olmoe_1b_7b", {}), ("olmoe_1b_7b", {"remat": False}),
     ("hubert_xlarge", {}), ("hubert_xlarge", {"accum_steps": 2}),
     ("internvl2_76b", {}), ("internvl2_76b", {"accum_steps": 2}),
+    ("zamba2_2_7b", {}), ("zamba2_2_7b", {"remat": False}),
+    ("xlstm_350m", {}), ("xlstm_350m", {"accum_steps": 2}),
 ], ids=["olmoe", "olmoe-no_remat", "hubert", "hubert-accum2", "internvl2",
-        "internvl2-accum2"])
+        "internvl2-accum2", "zamba2", "zamba2-no_remat", "xlstm",
+        "xlstm-accum2"])
 def test_family_train_step_matches_jax(arch, over):
     """The loss, its metrics (the MoE aux means too) and every gradient
     against ``jax.value_and_grad`` of the JAX ``loss_fn``; then one train
     step each (loss, grad norm, parameters); then the prefill step's
-    logits (a VLM's patch rows included)."""
+    logits (a VLM's patch rows included).  xLSTM's ``mlstm`` leaves after
+    the step are held at ``SCAN_PARAM_TOL``: their gradients are small
+    (max 1.3e-5) and pass through the scan's bf16 rounding, and AdamW's
+    first step divides each element by its own magnitude, which turns
+    their 1e-11-sized gradient differences into updates up to 4.4e-6
+    apart (measured).  Every gradient holds the common tolerance."""
     jcfg, cfg = _cfgs(arch, **over)
     jstate = JS.init_state(jcfg, jax.random.key(2))
     B, S = 4, 16
@@ -258,7 +269,12 @@ def test_family_train_step_matches_jax(arch, over):
                                    atol=1e-7)
     _assert_tree_close(jg, tg, atol=1e-7, rtol=1e-5)
     js, ts = _train_both(jcfg, cfg, jstate, 1, B=B, S=S)
-    _assert_tree_close(js.params, ts.params, **PARAM_TOL)
+    scan = {k for k in ("mlstm",) if k in ts.params}
+    _assert_tree_close({k: v for k, v in js.params.items() if k not in scan},
+                       {k: v for k, v in ts.params.items() if k not in scan},
+                       **PARAM_TOL)
+    for k in scan:
+        _assert_tree_close(js.params[k], ts.params[k], **SCAN_PARAM_TOL)
     if over:
         return
     fwd = {k: v for k, v in jb.items() if k not in ("labels", "mask")}
@@ -476,7 +492,8 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "hubert_xlarge",
-                                  "internvl2_76b"])
+                                  "internvl2_76b", "zamba2_2_7b",
+                                  "xlstm_350m"])
 def test_train_cli_new_families_on_cpu(capsys, arch):
     train_cli.main(["--arch", arch, "--reduced", "--steps", "2",
                     "--batch", "2", "--seq", "16", "--device", "cpu"])
