@@ -182,7 +182,7 @@ Phases, one line each (any failure exits non-zero):
                the first), 32 forward and 16 backward attention launches
                a step (remat reruns each layer's forward); no checkpoint
   8d. pipeline / train-serve  a ``StreamingSampleStore`` on the card
-               ingests 262,144 sample ids in plans of 4096; an epoch at a
+               ingests 131,072 sample ids in plans of 4096; an epoch at a
                held snapshot, read by 8 readers in one pass while 16,384
                more ids arrive, equals the host oracle; 4 batches of
                ``epoch_iterator`` (B = 8, S = 256) train the full-width
@@ -209,6 +209,26 @@ Phases, one line each (any failure exits non-zero):
                ``run_with_restarts`` with a ``CheckpointManager`` under
                ``build/``: 12 steps, and 12 with crashes at 6 and 10; losses
                and parameters within rtol 1e-5 / atol 1e-6
+  8g. dryrun   ``repro_torch.launch.dryrun.sweep``: every (arch x shape)
+               of ``config.ARCH_IDS`` x ``SHAPES`` at full published
+               width, the port's real train / prefill / decode step run on
+               ``meta`` tensors (nothing allocated) in parallel ``spawn``
+               workers, each pair traced once and read on both production
+               meshes (16 x 16 and 2 x 16 x 16): 64 cells OK and 16 SKIP
+               with the JAX package's reasons; every record's counted
+               FLOPs at least 0.99 x ``roofline.model_flops``;
+               ``torch.cuda.memory_allocated()`` the same before and after
+               and no worker initialised CUDA.  Per cell: per-chip GB
+               (arguments + temp), ``fits`` (80 GB), counted and model
+               FLOPs, the roofline bottleneck, trace seconds
+  8h. roofline the full-width phases' own measured step times (train,
+               train-hubert; the serve phases' decode ticks; moe-deepseek's
+               prefill and decode step; vlm-internvl2's prefill) read
+               against one H100's roofline (989 TFLOP/s bf16, 3.35 TB/s):
+               ``model_flops`` at the phase's own (B, S, kind) on a 1 x 1
+               mesh, the counted FLOPs and bytes of the same step (a meta
+               trace), ``mfu``, the counted TFLOP/s and shares, the
+               bottleneck; counted >= 0.99 x model FLOPs on every line
  10. kernels   each kernel again at the widest inputs its path gave it:
                parity with its twin (exact for the int32 store kernels;
                attention within one bf16 ulp, atol 1e-5 + rtol 2^-7, in
@@ -370,7 +390,7 @@ TRAIN_B, TRAIN_S = 8, 256     # phase train: llama3.2-1b batch and sequence
 TRAIN_STEPS = 8               # ... steps, AdamW warmup over the first 2
 TRAIN_WARMUP = 2
 TRAIN_SERVE_BATCHES = 4       # phase train-serve: epoch batches trained on
-SAMPLE_IDS = 262_144          # phase pipeline: sample ids in the epoch ...
+SAMPLE_IDS = 131_072          # phase pipeline: sample ids in the epoch ...
 SAMPLE_EXTRA = 16_384         # ... ingested while the epoch is held
 SAMPLE_RETIRE = 65_536        # ... consumed ids retired, then compact
 # attention-bwd: the backward kernel within this share of the call's
@@ -406,6 +426,8 @@ RECURRENT_TOKENS = 64         # cpu==cuda-model zamba2 / xLSTM: forward tokens
 ULP = 2.0 ** -23              # the recurrent families' spread: embed x (1+ULP)
 HUBERT_FRAMES = 64            # cpu==cuda-model hubert: frames a sequence
 TRAIN_UPDATE_TOL = 1e-2       # train-cpu==cuda: fp32 update, relative norm
+DRYRUN_CELLS = (64, 16)       # dryrun: OK and SKIP records over both meshes
+MODEL_FLOPS_GATE = 0.99       # dryrun / roofline: counted >= this x model
 TRAIN_BF16_LOSS = 1e-2        # ... bf16 loss, relative to the fp32 loss
 
 
@@ -2196,7 +2218,8 @@ def serve_phase(args, rng) -> dict:
         table_entries=len(view),
         table_stats=json.dumps(stats, sort_keys=True).replace(" ", ""),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
-    return dict(counts=counts, calls=rec.calls)
+    return dict(counts=counts, calls=rec.calls, cfg=cfg, batch=4,
+                max_len=512, decode_ms=float(np.mean(decode_ms)))
 
 
 def serve_gemma3_phase(args, rng) -> dict:
@@ -2303,7 +2326,8 @@ def serve_gemma3_phase(args, rng) -> dict:
                                    if k.endswith(":window")}
                                   ).replace(" ", ""),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
-    return dict(counts=counts, calls=rec.calls, n=rec.n)
+    return dict(counts=counts, calls=rec.calls, n=rec.n, cfg=cfg, batch=4,
+                max_len=GEMMA_MAX_LEN, decode_ms=float(np.mean(decode_ms)))
 
 
 # ---------------------------------------------------------------------------
@@ -2456,7 +2480,8 @@ def serve_olmoe_phase(args, rng) -> dict:
         table_entries=len(view),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
     del eng, again
-    return dict(counts=counts, calls=rec.calls, n=rec.n)
+    return dict(counts=counts, calls=rec.calls, n=rec.n, cfg=cfg, batch=4,
+                max_len=512, decode_ms=float(np.mean(decode_ms)))
 
 
 def ulp_nudged(params: dict) -> dict:
@@ -2674,7 +2699,9 @@ def serve_recurrent_phase(args, rng, arch: str, tag: str) -> dict:
         table_entries=len(view),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
     del eng
-    return dict(counts=counts, calls=rec.calls, n=rec.n)
+    return dict(counts=counts, calls=rec.calls, n=rec.n, cfg=cfg, batch=4,
+                max_len=RECURRENT_MAX_LEN,
+                decode_ms=float(np.mean(decode_ms)))
 
 
 def moe_deepseek_phase(args) -> dict:
@@ -2756,7 +2783,9 @@ def moe_deepseek_phase(args) -> dict:
         max_memory_allocated_mib=f"{peak / 2**20:.1f}",
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
     del params, cache
-    return dict(counts=counts)
+    return dict(counts=counts, cfg=cfg, prefill=DEEPSEEK_PREFILL,
+                prefill_ms=prefill_ms, max_len=Smax,
+                decode_ms=float(np.mean(step_ms[1:])))
 
 
 def vlm_internvl2_phase(args) -> dict:
@@ -2822,7 +2851,8 @@ def vlm_internvl2_phase(args) -> dict:
         max_memory_allocated_mib=f"{peak / 2**20:.1f}",
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
     del params, logits
-    return dict(counts=counts)
+    return dict(counts=counts, cfg=cfg, seq=NP + INTERNVL_TEXT,
+                prefill_ms=ms[1])
 
 
 # ---------------------------------------------------------------------------
@@ -3636,7 +3666,7 @@ def train_hubert_phase(args) -> dict:
         losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
     del state
-    return dict(counts=counts, calls=rec.calls, step_ms=steady)
+    return dict(counts=counts, calls=rec.calls, step_ms=steady, cfg=cfg)
 
 
 def _rel_norm(x, ref) -> float:
@@ -3885,6 +3915,136 @@ def train_restart_phase(args) -> None:
         bit_equal=bool(loss_err == 0 and perr == 0),
         gate="rtol=1e-5,atol=1e-6", run_a_s=f"{ta:.3f}", run_b_s=f"{tb:.3f}",
         launches=json.dumps(counts, sort_keys=True).replace(" ", ""))
+
+
+# ---------------------------------------------------------------------------
+# phases 8g-8h: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+def dryrun_phase() -> None:
+    """Every (arch, shape) of the JAX package's table at full width, the
+    port's real step on ``meta`` tensors (``launch.dryrun.sweep``: one
+    ``spawn`` worker a core, each pair traced once and read on both
+    production meshes); nothing may reach the card."""
+    import os
+
+    from repro_torch.config import SHAPES, get_arch, shape_applicable
+    from repro_torch.launch import dryrun, roofline
+
+    gc.collect()                  # earlier phases' garbage freed first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    jobs = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    records, touched = dryrun.sweep(jobs)
+    secs = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    ok = [r for r in records if r["status"] == "OK"]
+    skip = [r for r in records if r["status"] == "SKIP"]
+    check((len(ok), len(skip)) == DRYRUN_CELLS,
+          f"dryrun: {len(ok)} OK and {len(skip)} SKIP cells, want "
+          f"{DRYRUN_CELLS}: {[r for r in records if r not in ok + skip]}")
+    for r in skip:
+        want = shape_applicable(get_arch(r["arch"]), SHAPES[r["shape"]])[1]
+        check(r["reason"] == want and want,
+              f"dryrun: {r['arch']} {r['shape']} skipped for {r['reason']!r}")
+    low = []
+    for r in ok:
+        row = roofline.analyze_cell(r)
+        ma = r["memory_analysis"]
+        per_chip = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        counted, mf = r["global"]["flops"], r["model_flops"]
+        say("dryrun-cell", arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+            per_chip_gb=f"{per_chip / 1e9:.3f}",
+            fits=r["fits"], counted_flops=f"{counted:.4e}",
+            model_flops=f"{mf:.4e}", counted_over_model=f"{counted / mf:.3f}",
+            counted_bytes=f"{r['global']['bytes accessed']:.4e}",
+            bottleneck=row["bottleneck"], trace_s=r["lower_s"])
+        if counted < MODEL_FLOPS_GATE * mf:
+            low.append((r["arch"], r["shape"], counted / mf))
+    check(not low, f"dryrun: counted FLOPs below {MODEL_FLOPS_GATE} x model "
+                   f"FLOPs: {low}")
+    check(after == before and not touched,
+          f"dryrun: the card's memory went {before} -> {after} bytes, a "
+          f"worker initialised CUDA: {touched}")
+    slow = sorted((r for r in ok if r["mesh"] == "single"),
+                  key=lambda r: -r["lower_s"])[:3]
+    say("dryrun", ok=len(ok), skip=len(skip), jobs=jobs,
+        seconds=f"{secs:.1f}", memory_allocated_before=before,
+        memory_allocated_after=after, workers_touched_cuda=touched,
+        fits=sum(r["fits"] for r in ok),
+        slowest=json.dumps([[r["arch"], r["shape"], r["lower_s"]]
+                            for r in slow]).replace(" ", ""),
+        card=repr(roofline.card()))
+
+
+def roofline_phase(res: dict) -> None:
+    """Each full-width phase's own measured step time against one card's
+    roofline: ``roofline.measured`` at the phase's (B, S, kind) and
+    config (deepseek's layers as run, internvl2's 8): model FLOPs, the
+    counted FLOPs and bytes of the same step from a meta trace (the
+    serve phases' ``decode_step`` as ``make_serve_step`` runs it, the
+    prefills as ``make_prefill_step``: deepseek's KV-cache writes are not
+    in its count), mfu, the counted shares of 989 TFLOP/s and 3.35 TB/s."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import roofline
+
+    d, v = res["moe-deepseek"], res["vlm-internvl2"]
+    lines = [
+        ("train", res["train"]["cfg"],
+         ShapeConfig("train", TRAIN_S, TRAIN_B, "train"),
+         res["train"]["step_ms"]),
+        ("train-hubert", res["train-hubert"]["cfg"],
+         ShapeConfig("train-hubert", HUBERT_S, HUBERT_B, "train"),
+         res["train-hubert"]["step_ms"]),
+        *[(name, res[name]["cfg"],
+           ShapeConfig(name, res[name]["max_len"], res[name]["batch"],
+                       "decode"), res[name]["decode_ms"])
+          for name in ("serve", "serve-gemma3", "serve-olmoe",
+                       "serve-zamba2", "serve-xlstm")],
+        ("moe-deepseek:decode", d["cfg"],
+         ShapeConfig("moe-deepseek", d["max_len"], 1, "decode"),
+         d["decode_ms"]),
+        ("moe-deepseek:prefill", d["cfg"],
+         ShapeConfig("moe-deepseek", d["prefill"], 1, "prefill"),
+         d["prefill_ms"]),
+        ("vlm-internvl2:prefill", v["cfg"],
+         ShapeConfig("vlm-internvl2", v["seq"], 1, "prefill"),
+         v["prefill_ms"]),
+    ]
+    card = roofline.card()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    low = []
+    for name, cfg, shape, ms in lines:
+        r = roofline.measured(cfg, shape, ms)
+        say("roofline", step=name, model=cfg.name, layers=cfg.n_layers,
+            kind=shape.kind, batch=shape.global_batch, seq=shape.seq_len,
+            ms=f"{ms:.3f}", model_flops=f"{r['model_flops']:.4e}",
+            counted_flops=f"{r['counted_flops']:.4e}",
+            counted_bytes=f"{r['counted_bytes']:.4e}",
+            counted_over_model=f"{r['counted_over_model']:.3f}",
+            mfu=f"{r['mfu']:.6f}",
+            counted_tflops=f"{r['counted_tflops']:.3f}",
+            flops_share=f"{r['flops_share']:.6f}",
+            bytes_share=f"{r['bytes_share']:.6f}",
+            bottleneck=r["bottleneck"], bound_ms=f"{r['bound_ms']:.3f}",
+            trace_s=f"{r['trace_s']:.2f}", card=repr(card))
+        if r["counted_over_model"] < MODEL_FLOPS_GATE:
+            low.append((name, r["counted_over_model"]))
+    check(not low, f"roofline: counted FLOPs below {MODEL_FLOPS_GATE} x "
+                   f"model FLOPs: {low}")
+    gc.collect()
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() == before,
+          "roofline: a meta trace allocated on the card")
+    say("roofline-done", lines=len(lines),
+        seconds=f"{time.perf_counter() - t0:.1f}",
+        peak_flops=roofline.PEAK_FLOPS, hbm_bw=roofline.HBM_BW)
 
 
 # ---------------------------------------------------------------------------
@@ -4519,6 +4679,8 @@ def main() -> int:
     train_cpu_equals_cuda(args)
     train_families_cpu_equals_cuda(args)
     train_restart_phase(args)
+    dryrun_phase()
+    roofline_phase(res)
     facts = main_res["facts"]
     durability_phase(args, api, rng, card,
                      facts["n_ops"] / max(facts["apply_s"], 1e-9))

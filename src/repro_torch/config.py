@@ -3,14 +3,17 @@ options — a copy of the JAX package's ``config.py``.
 
 Every architecture the port runs has a module in ``repro_torch.configs``
 exposing ``config() -> ArchConfig`` with the exact published hyper-parameters, plus
-``ArchConfig.reduced()`` for CPU smoke tests.
+``ArchConfig.reduced()`` for CPU smoke tests.  Shapes below are the
+input-shape set of the dry run (``launch.dryrun``); applicability rules
+(decode for encoder-only, long-context for full-attention archs) live in
+``shape_applicable``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # sub-configs
@@ -137,6 +140,56 @@ class ArchConfig:
         )
 
 
+# ---------------------------------------------------------------------------
+# input shapes (assigned): seq_len x global_batch, and which step they lower
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "llama3_2_1b",
+    "qwen3_4b",
+    "olmo_1b",
+    "gemma3_1b",
+    "internvl2_76b",
+    "zamba2_2_7b",
+    "hubert_xlarge",
+    "olmoe_1b_7b",
+    "deepseek_moe_16b",
+    "xlstm_350m",
+]
+
+
 def get_arch(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.config()
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(applicable, reason-if-not): the JAX package's skip rules, word for
+    word."""
+    if arch.encoder_only and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            arch.ssm is not None
+            or arch.xlstm is not None
+            or (arch.window > 0)  # local attention (gemma3 5:1) caps the window
+        )
+        if not sub_quadratic:
+            return False, "pure full-attention arch: 500k needs sub-quadratic attention"
+    return True, ""

@@ -115,10 +115,12 @@ def check(rc: int, what: str) -> None:
                            f"cudaError {rc}")
 
 
-def device_type(t) -> str:
+def device_type(t, meta: bool = False) -> str:
     """``"cpu"`` (take the plain twin) or ``"cuda"`` (launch the kernel);
-    any other device raises."""
-    if t.device.type not in ("cpu", "cuda"):
+    with ``meta`` also ``"meta"`` (the attention wrappers' shape-only
+    operators, ``_meta``: the dry run).  Any other device raises."""
+    ok = ("cpu", "cuda", "meta") if meta else ("cpu", "cuda")
+    if t.device.type not in ok:
         raise ValueError(f"no kernel or plain twin for device {t.device}")
     return t.device.type
 

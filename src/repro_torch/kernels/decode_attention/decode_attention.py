@@ -5,10 +5,12 @@ CUDA source: ``repro_torch/csrc/decode_attention.cu`` (design notes
 there).  It replaces the Pallas TPU kernel ``decode_attention`` of
 ``src/repro/kernels/decode_attention/decode_attention.py``.  The wrapper
 launches the kernel for a CUDA tensor and takes the plain twin in
-``ref.py`` for a CPU tensor; any other device raises.  On the card the
-cache is split into chunks of rows (:func:`_split_schedule`), scored by
-separate blocks and combined by a second launch from the same C entry;
-one wrapper call counts once in ``launch_counts``.  A sliding window
+``ref.py`` for a CPU tensor; on a ``meta`` tensor (the dry run) it checks
+as for CUDA and returns the kernel's output shapes through the
+shape-only operator of ``kernels._meta``; any other device raises.  On
+the card the cache is split into chunks of rows (:func:`_split_schedule`),
+scored by separate blocks and combined by a second launch from the same
+C entry; one wrapper call counts once in ``launch_counts``.  A sliding window
 (gemma3's local layers) is a per-sequence first row, ``starts``, that the
 kernel reads on the card.
 """
@@ -57,7 +59,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 with ``return_stats``.  ``starts`` [B] int32, when given, is each
     sequence's first row (a sliding window): rows [starts[b], lengths[b])
     are attended to."""
-    if _build.device_type(q) == "cpu":
+    dev = _build.device_type(q, meta=True)
+    if dev == "cpu":
         return decode_attention_ref(q, k, v, lengths, starts=starts,
                                     return_stats=return_stats)
     if q.dtype not in DTYPE_CODE:
@@ -79,6 +82,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"decode_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"lengths {tuple(lengths.shape)} (need H % KVH == 0, "
             f"H / KVH <= {MAX_GROUP}, D <= {MAX_HEAD_DIM})")
+    if dev == "meta":
+        from repro_torch.kernels import _meta
+
+        out, m, l = _meta.decode_attention(q, k, v, lengths, starts)
+        return (out, m, l) if return_stats else out
     out = torch.empty_like(q)
     m = torch.empty(B, H, 1, dtype=torch.float32, device=q.device)
     l = torch.empty(B, H, 1, dtype=torch.float32, device=q.device)

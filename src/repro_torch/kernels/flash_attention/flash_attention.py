@@ -8,7 +8,9 @@ in each).  The forward replaces the Pallas TPU kernel
 flash_attention.py``; the TPU package has no backward kernel (XLA
 differentiates its jnp attention), and the backward computes that same
 gradient.  The wrappers launch the kernels for CUDA tensors and take the
-plain twins in ``ref.py`` for CPU tensors; any other device raises.
+plain twins in ``ref.py`` for CPU tensors; on ``meta`` tensors (the dry
+run) they check as for CUDA and return the kernels' output shapes through
+the shape-only operators of ``kernels._meta``; any other device raises.
 """
 
 from __future__ import annotations
@@ -62,10 +64,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each row's logsumexp, fp32 [B, H, Sq] (what the backward needs);
     without it the kernel writes none.
     """
-    if _build.device_type(q) == "cpu":
+    dev = _build.device_type(q, meta=True)
+    if dev == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              return_lse=return_lse)
     B, H, KVH, Sq, Skv, D = _shapes("flash_attention", q, k, v)
+    if dev == "meta":
+        from repro_torch.kernels import _meta
+
+        out, lse = _meta.flash_attention(q, k, v, bool(causal), int(window),
+                                         bool(return_lse))
+        return (out, lse) if return_lse else out
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -92,7 +101,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logsumexp (``return_lse=True``), ``do`` the output's gradient.  One
     call is one counted launch (three kernels: rowsum(dO ⊙ O), dQ, and
     dK/dV summed over each kv head's group in the block, no atomics)."""
-    if _build.device_type(q) == "cpu":
+    dev = _build.device_type(q, meta=True)
+    if dev == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
     B, H, KVH, Sq, Skv, D = _shapes("flash_attention_bwd", q, k, v)
@@ -102,6 +112,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)} "
             f"and lse {tuple(lse.shape)} must match q {tuple(q.shape)}")
+    if dev == "meta":
+        from repro_torch.kernels import _meta
+
+        return _meta.flash_attention_bwd(q, k, v, o, lse, do, bool(causal),
+                                         int(window))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

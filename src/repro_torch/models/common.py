@@ -6,7 +6,9 @@ parameter dicts of tensors, with the JAX package's names and layouts
 Parameters are kept in ``param_dtype`` and cast to ``compute_dtype`` at
 every use, as in JAX.  Attention goes through the port's kernels: the
 hand-written CUDA kernels on a CUDA tensor, their plain twins on the CPU.
-Initializers take an explicit ``torch.Generator``.  Everything here is
+Initializers take an explicit ``torch.Generator`` and draw on its device
+unless given another ``device`` (``meta``: shapes only, nothing
+allocated; the dry run's parameters).  Everything here is
 differentiable: attention under autograd takes the backward kernel on
 the card (``kernels.flash_attention.ops``).
 """
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
+from repro_torch.distributed.ctx import shard_act
 from repro_torch.kernels.decode_attention.ops import decode
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.optim.adamw import tree_map
@@ -31,8 +34,27 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _normal(gen: torch.Generator, shape, cfg: ArchConfig, scale: float):
-    return torch.randn(shape, generator=gen, device=gen.device,
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an initializer draws: ``device``, else ``gen.device``.  A
+    generator cannot live on ``meta``; a CPU one draws meta tensors."""
+    return gen.device if device is None else torch.device(device)
+
+
+def cache_device(device=None) -> torch.device:
+    """Where a decode cache lives: ``meta`` as asked (the dry run), else
+    ``resolve_device``'s rule (``cuda`` unless the caller asks for the
+    CPU)."""
+    from repro_torch.core.store import resolve_device
+
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device(device)
+    return resolve_device(device)
+
+
+def _normal(gen: torch.Generator, shape, cfg: ArchConfig, scale: float,
+            device=None):
+    return torch.randn(shape, generator=gen,
+                       device=init_device(gen, device),
                        dtype=dtype_of(cfg.param_dtype)) * scale
 
 
@@ -122,22 +144,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # kernel)
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+def init_attention(cfg: ArchConfig, gen: torch.Generator,
+                   device=None) -> Dict:
     d, H, KVH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
+    dev = init_device(gen, device)
     s = 0.02
     p = {
-        "wq": _normal(gen, (d, H, hd), cfg, s),
-        "wk": _normal(gen, (d, KVH, hd), cfg, s),
-        "wv": _normal(gen, (d, KVH, hd), cfg, s),
+        "wq": _normal(gen, (d, H, hd), cfg, s, dev),
+        "wk": _normal(gen, (d, KVH, hd), cfg, s, dev),
+        "wv": _normal(gen, (d, KVH, hd), cfg, s, dev),
         "wo": _normal(gen, (H, hd, d), cfg,
-                      s / max(1, cfg.n_layers) ** 0.5),
+                      s / max(1, cfg.n_layers) ** 0.5, dev),
     }
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(hd, dtype=dtype_of(cfg.param_dtype),
-                                 device=gen.device)
+                                 device=dev)
         p["k_norm"] = torch.ones(hd, dtype=dtype_of(cfg.param_dtype),
-                                 device=gen.device)
+                                 device=dev)
     return p
 
 
@@ -205,6 +229,8 @@ def attention_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
           == lengths[:, None])[:, None, :, None]          # [B, 1, Smax, 1]
     cache_k = torch.where(at, k[:, :, None, :].to(cache_k.dtype), cache_k)
     cache_v = torch.where(at, v[:, :, None, :].to(cache_v.dtype), cache_v)
+    cache_k = shard_act(cache_k, "kv4")
+    cache_v = shard_act(cache_v, "kv4")
 
     # the kernel attends to rows < its length: this token's row included
     kv_len = (lengths + 1).clamp_max(Smax).int()
@@ -224,14 +250,16 @@ def attention_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_mlp(cfg: ArchConfig, gen: torch.Generator,
-             d_ff: Optional[int] = None) -> Dict:
+             d_ff: Optional[int] = None, device=None) -> Dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
+    dev = init_device(gen, device)
     s = 0.02
     return {
-        "w1": _normal(gen, (d, f), cfg, s),
-        "w3": _normal(gen, (d, f), cfg, s),
-        "w2": _normal(gen, (f, d), cfg, s / max(1, cfg.n_layers) ** 0.5),
+        "w1": _normal(gen, (d, f), cfg, s, dev),
+        "w3": _normal(gen, (d, f), cfg, s, dev),
+        "w2": _normal(gen, (f, d), cfg, s / max(1, cfg.n_layers) ** 0.5,
+                      dev),
     }
 
 
@@ -244,10 +272,12 @@ def mlp_fwd(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     return (h @ p["w2"].to(cdt)).to(x.dtype)
 
 
-def init_embed(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    p = {"embed": _normal(gen, (cfg.vocab, cfg.d_model), cfg, 0.02)}
+def init_embed(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
+    dev = init_device(gen, device)
+    p = {"embed": _normal(gen, (cfg.vocab, cfg.d_model), cfg, 0.02, dev)}
     if not cfg.tie_embeddings:
-        p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab), cfg, 0.02)
+        p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab), cfg, 0.02,
+                               dev)
     return p
 
 
@@ -264,7 +294,7 @@ def unembed(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
     w = p["embed"].to(cdt).T if cfg.tie_embeddings \
         else p["unembed"].to(cdt)
-    return x.to(cdt) @ w
+    return shard_act(x.to(cdt) @ w, "logits")
 
 
 # ---------------------------------------------------------------------------

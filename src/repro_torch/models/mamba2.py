@@ -112,19 +112,19 @@ def _dims(cfg: ArchConfig) -> Tuple[int, int, int]:
     return d_inner, d_inner // s.head_dim, d_inner + 2 * s.d_state
 
 
-def init_block(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+def init_block(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
     """The JAX package's keys and shapes; ``A_log``, ``dt_bias`` and ``D``
     are fp32 whatever ``param_dtype`` is."""
     s = cfg.ssm
     d = cfg.d_model
     d_inner, H, convdim = _dims(cfg)
-    dev = gen.device
+    dev = common.init_device(gen, device)
     f32 = dict(dtype=torch.float32, device=dev)
     return {
         "ln": common.init_norm(cfg, d, dev),
         "in_proj": common._normal(
-            gen, (d, 2 * d_inner + 2 * s.d_state + H), cfg, 0.02),
-        "conv_w": common._normal(gen, (s.d_conv, convdim), cfg, 0.2),
+            gen, (d, 2 * d_inner + 2 * s.d_state + H), cfg, 0.02, dev),
+        "conv_w": common._normal(gen, (s.d_conv, convdim), cfg, 0.2, dev),
         "conv_b": torch.zeros(convdim, dtype=common.dtype_of(cfg.param_dtype),
                               device=dev),
         "A_log": torch.zeros(H, **f32),
@@ -132,7 +132,7 @@ def init_block(cfg: ArchConfig, gen: torch.Generator) -> Dict:
         "D": torch.ones(H, **f32),
         "out_norm": common.init_norm(cfg, d_inner, dev),
         "out_proj": common._normal(gen, (d_inner, d), cfg,
-                                   0.02 / max(1, cfg.n_layers) ** 0.5),
+                                   0.02 / max(1, cfg.n_layers) ** 0.5, dev),
     }
 
 

@@ -26,27 +26,30 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig, MoEConfig
+from repro_torch.distributed.ctx import shard_act
 from repro_torch.models import common
 
 
-def init_moe(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+def init_moe(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
     """The JAX package's keys and shapes: ``router`` [D, E] (fp32 always),
     ``w1`` / ``w3`` [E, D, F], ``w2`` [E, F, D] scaled by 1/sqrt(L), and
     ``shared`` (an MLP of ``d_expert * n_shared``) when there are shared
     experts."""
     m = cfg.moe
     d = cfg.d_model
+    dev = common.init_device(gen, device)
     s = 0.02
     p = {
         "router": torch.randn((d, m.n_experts), generator=gen,
-                              device=gen.device, dtype=torch.float32) * s,
-        "w1": common._normal(gen, (m.n_experts, d, m.d_expert), cfg, s),
-        "w3": common._normal(gen, (m.n_experts, d, m.d_expert), cfg, s),
+                              device=dev, dtype=torch.float32) * s,
+        "w1": common._normal(gen, (m.n_experts, d, m.d_expert), cfg, s, dev),
+        "w3": common._normal(gen, (m.n_experts, d, m.d_expert), cfg, s, dev),
         "w2": common._normal(gen, (m.n_experts, m.d_expert, d), cfg,
-                             s / max(1, cfg.n_layers) ** 0.5),
+                             s / max(1, cfg.n_layers) ** 0.5, dev),
     }
     if m.n_shared:
-        p["shared"] = common.init_mlp(cfg, gen, d_ff=m.d_expert * m.n_shared)
+        p["shared"] = common.init_mlp(cfg, gen, d_ff=m.d_expert * m.n_shared,
+                                      device=dev)
     return p
 
 
@@ -95,7 +98,7 @@ def moe_fwd(cfg: ArchConfig, p: Dict, x: torch.Tensor
     T = B * S
     E, K = m.n_experts, m.top_k
     dev = x.device
-    xt = x.reshape(T, D)
+    xt = shard_act(x.reshape(T, D), "moe_tokens")
     logits, probs, gate, choice = route(cfg, p, xt)
 
     # ---- sort-based dispatch (a Python int capacity: no host sync) ----
@@ -121,13 +124,16 @@ def moe_fwd(cfg: ArchConfig, p: Dict, x: torch.Tensor
                                device=dev).scatter(0, slot, sg)[:E * C]
     slot_of = torch.empty_like(slot).scatter_(0, sperm, slot).view(T, K)
     xe = _Pick.apply(xt, tok_at_slot, slot_of).view(E, C, D).to(cdt)
+    xe = shard_act(xe, "moe_experts")      # EP: experts over model axis
 
     # ---- expert compute: three batched products in cdt ----------------
     act = F.silu if cfg.act == "silu" else (
         lambda a: F.gelu(a, approximate="tanh"))
-    h = act(torch.bmm(xe, p["w1"].to(cdt)))
-    h = h * torch.bmm(xe, p["w3"].to(cdt))
-    ye = torch.bmm(h, p["w2"].to(cdt))                          # [E, C, D]
+    def weight(k):              # cast at its use: one bf16 copy at a time
+        return shard_act(p[k].to(cdt), "moe_weight")
+    h = act(torch.bmm(xe, weight("w1")))
+    h = h * torch.bmm(xe, weight("w3"))
+    ye = torch.bmm(h, weight("w2"))                             # [E, C, D]
 
     # ---- combine: each token gathers its K weighted slots -------------
     yflat = (ye.reshape(E * C, D).float() * gate_at_slot[:, None]).to(cdt)
@@ -138,7 +144,11 @@ def moe_fwd(cfg: ArchConfig, p: Dict, x: torch.Tensor
 
     # ---- aux losses ----------------------------------------------------
     me = probs.mean(0)                                          # [E]
-    ce = torch.bincount(flat_e, minlength=E).float() / (T * K)
+    # bincount as a scatter-add of ones: the same integer counts, and a
+    # shape that does not depend on the data (the dry run's meta tensors)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.float() / (T * K)
     balance = E * torch.sum(me * ce) * m.balance_coef
     z = torch.mean(torch.logsumexp(logits, -1) ** 2) * m.router_z_coef
     dropped = 1.0 - keep.float().mean()

@@ -1,7 +1,9 @@
 """Uniform model API of the port: the transformer families (dense,
 MoE, VLM and the encoder-only audio model, which has no decode step),
-the hybrid (zamba) and the xLSTM families, plus the bridge that carries
-parameters between the port and the JAX package."""
+the hybrid (zamba) and the xLSTM families; the abstract parameters and
+inputs of a dry-run cell (``param_shapes``, ``input_specs``: tensors on
+``meta``, nothing allocated); and the bridge that carries parameters
+between the port and the JAX package."""
 
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import ArchConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.models import transformer, xlstm, zamba
+
+META = torch.device("meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +41,53 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
     dec = None if cfg.encoder_only else transformer.decode_step
     cache = None if cfg.encoder_only else transformer.init_cache
     return ModelAPI(transformer.init, transformer.forward_train, cache, dec)
+
+
+def param_shapes(cfg: ArchConfig) -> Dict:
+    """The parameter tree on ``meta`` (no allocation) for dry runs: the
+    JAX package's keys, nesting, shapes and dtypes."""
+    return get_model(cfg).init(cfg, torch.Generator(), device=META)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict:
+    """Meta stand-ins for every model input of this cell, shaped and
+    typed as the JAX package's ``ShapeDtypeStruct``s.
+
+    Modality frontends are stubs: audio provides frame embeddings at
+    d_model, VLM provides InternViT patch features.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=META)
+    if shape.kind in ("train", "prefill"):
+        if cfg.encoder_only:
+            return {
+                "embeds": sds((B, S, cfg.d_model), torch.bfloat16),
+                "labels": sds((B, S), i32),
+                "mask": sds((B, S), torch.bool),
+            }
+        if cfg.vlm is not None:
+            st = S - cfg.vlm.n_patches
+            return {
+                "tokens": sds((B, st), i32),
+                "patches": sds((B, cfg.vlm.n_patches, cfg.vlm.patch_dim),
+                               torch.bfloat16),
+                "labels": sds((B, st), i32),
+                "mask": sds((B, st), torch.bool),
+            }
+        return {
+            "tokens": sds((B, S), i32),
+            "labels": sds((B, S), i32),
+            "mask": sds((B, S), torch.bool),
+        }
+    # decode: one new token against a cache of length S
+    return {
+        "tokens": sds((B,), i32),
+        "lengths": sds((B,), i32),
+        "cache": get_model(cfg).init_cache(cfg, B, S, device=META),
+    }
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Dict, device=None) -> Dict:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
+from repro_torch.distributed.ctx import shard_act
 from repro_torch.models import common, moe
 
 
@@ -52,38 +53,39 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    dev = gen.device
+def _init_layer(cfg: ArchConfig, gen: torch.Generator, dev) -> Dict:
     p = {
         "ln1": common.init_norm(cfg, cfg.d_model, dev),
-        "attn": common.init_attention(cfg, gen),
+        "attn": common.init_attention(cfg, gen, dev),
         "ln2": common.init_norm(cfg, cfg.d_model, dev),
     }
     if cfg.moe is not None:
-        p["moe"] = moe.init_moe(cfg, gen)
+        p["moe"] = moe.init_moe(cfg, gen, dev)
     else:
-        p["mlp"] = common.init_mlp(cfg, gen)
+        p["mlp"] = common.init_mlp(cfg, gen, device=dev)
     return p
 
 
-def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    """Seeded random parameters on ``gen.device`` (fp32 ``param_dtype``),
-    in the JAX package's layout.  The values follow ``gen``, not the JAX
-    PRNG: to carry JAX weights over use ``registry.params_from_numpy``.
+def init(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
+    """Seeded random parameters on ``device`` (default ``gen.device``;
+    fp32 ``param_dtype``), in the JAX package's layout.  The values follow
+    ``gen``, not the JAX PRNG: to carry JAX weights over use
+    ``registry.params_from_numpy``.
 
     Each stacked [L, ...] tensor is allocated once and each layer, drawn
     in turn, is copied into its row, so the peak holds one layer beyond
     the parameters (deepseek-moe-16b's are 66.7 GB)."""
-    dev = gen.device
-    params = {"tok": common.init_embed(cfg, gen)}
+    dev = common.init_device(gen, device)
+    params = {"tok": common.init_embed(cfg, gen, dev)}
     params["layers"] = common.stacked(cfg.n_layers,
-                                      lambda: _init_layer(cfg, gen))
+                                      lambda: _init_layer(cfg, gen, dev))
     params["ln_f"] = common.init_norm(cfg, cfg.d_model, dev)
     if cfg.vlm is not None:
         params["projector"] = {
             "w1": common._normal(gen, (cfg.vlm.patch_dim, cfg.d_model), cfg,
-                                 0.02),
-            "w2": common._normal(gen, (cfg.d_model, cfg.d_model), cfg, 0.02),
+                                 0.02, dev),
+            "w2": common._normal(gen, (cfg.d_model, cfg.d_model), cfg, 0.02,
+                                 dev),
         }
     if cfg.encoder_only:
         # audio frontend stub: frame features arrive at d_model; a learned
@@ -133,9 +135,9 @@ def _layer_fwd(cfg, lp, x, positions, window: int, causal: bool,
     a = common.attention_fwd(cfg, lp["attn"], h, positions, window=window,
                              causal=causal, return_kv=return_kv)
     a, kv = (a[0], a[1:]) if return_kv else (a, None)
-    x = x + a
+    x = shard_act(x + a, "residual")
     y, aux = _ffn(cfg, lp, common.apply_norm(cfg, lp["ln2"], x))
-    return x + y, kv, aux
+    return shard_act(x + y, "residual"), kv, aux
 
 
 MOE_AUX = ("moe_balance", "moe_z", "moe_dropped")
@@ -173,6 +175,7 @@ def forward_train(cfg: ArchConfig, params: Dict, tokens=None, patches=None,
             pe = _tensor(patches, dev).to(cdt) @ proj["w1"].to(cdt)
             pe = F.gelu(pe, approximate="tanh") @ proj["w2"].to(cdt)
             x = torch.cat([pe, x], dim=1)
+    x = shard_act(x, "residual")
     positions = torch.arange(x.shape[1], device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
@@ -202,7 +205,8 @@ def prefill(cfg: ArchConfig, params: Dict, tokens, Smax: int,
     [B, S, V], cache with k/v valid on [:S] and zero after)."""
     dev = _device(params)
     tokens = _tokens(tokens, dev)
-    x = common.embed_tokens(cfg, params["tok"], tokens)
+    x = shard_act(common.embed_tokens(cfg, params["tok"], tokens),
+                  "residual")
     B, S = tokens.shape
     positions = torch.arange(S, device=dev)
     cache = init_cache(cfg, B, Smax, cache_dtype, device=dev)
@@ -217,11 +221,10 @@ def prefill(cfg: ArchConfig, params: Dict, tokens, Smax: int,
 
 def init_cache(cfg: ArchConfig, B: int, Smax: int, dtype=torch.bfloat16,
                device=None) -> Dict:
-    """Zero KV cache [L, B, KVH, Smax, hd] on ``device`` (default cuda)."""
-    from repro_torch.core.store import resolve_device
-
+    """Zero KV cache [L, B, KVH, Smax, hd] on ``device`` (default cuda;
+    ``meta`` for the dry run)."""
     shape = (cfg.n_layers, B, cfg.n_kv_heads, Smax, cfg.resolved_head_dim)
-    dev = resolve_device(device)
+    dev = common.cache_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
+from repro_torch.distributed.ctx import shard_act
 from repro_torch.models import common
 from repro_torch.models.mamba2 import ssd_chunked, ssd_recurrent_step
 from repro_torch.models.transformer import _device, _tokens
@@ -51,31 +52,31 @@ def _dims(cfg: ArchConfig) -> Tuple[int, int, int]:
 # mLSTM block
 # ---------------------------------------------------------------------------
 
-def init_mlstm(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+def init_mlstm(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
     """The JAX package's keys and shapes; ``w_if`` and ``b_if`` (forget
     bias 3: long memory at init) are fp32 whatever ``param_dtype`` is."""
     x = cfg.xlstm
     d = cfg.d_model
     di, nh, hd = _dims(cfg)
-    dev = gen.device
+    dev = common.init_device(gen, device)
     s = 0.02
     b_if = torch.zeros((nh, 2), dtype=torch.float32, device=dev)
     b_if[:, 1] = 3.0
     return {
         "ln": common.init_norm(cfg, d, dev),
-        "up": common._normal(gen, (d, 2 * di), cfg, s),
-        "conv_w": common._normal(gen, (x.d_conv, di), cfg, 0.2),
+        "up": common._normal(gen, (d, 2 * di), cfg, s, dev),
+        "conv_w": common._normal(gen, (x.d_conv, di), cfg, 0.2, dev),
         "conv_b": torch.zeros(di, dtype=common.dtype_of(cfg.param_dtype),
                               device=dev),
-        "wq": common._normal(gen, (di, nh, hd), cfg, s),
-        "wk": common._normal(gen, (di, nh, hd), cfg, s),
-        "wv": common._normal(gen, (di, nh, hd), cfg, s),
+        "wq": common._normal(gen, (di, nh, hd), cfg, s, dev),
+        "wk": common._normal(gen, (di, nh, hd), cfg, s, dev),
+        "wv": common._normal(gen, (di, nh, hd), cfg, s, dev),
         "w_if": torch.randn((di, nh, 2), generator=gen, device=dev,
                             dtype=torch.float32) * s,
         "b_if": b_if,
         "out_norm": common.init_norm(cfg, di, dev),
         "down": common._normal(gen, (di, d), cfg,
-                               s / max(1, cfg.n_layers) ** 0.5),
+                               s / max(1, cfg.n_layers) ** 0.5, dev),
     }
 
 
@@ -154,13 +155,13 @@ def mlstm_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, st: Dict
 # sLSTM block
 # ---------------------------------------------------------------------------
 
-def init_slstm(cfg: ArchConfig, gen: torch.Generator) -> Dict:
+def init_slstm(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
     """``W`` [d, nh, 4, hd], ``R`` [nh, hd, 4, hd] and ``b`` (forget bias
     3) are fp32 whatever ``param_dtype`` is."""
     d = cfg.d_model
     nh = cfg.n_heads
     hd = d // nh
-    dev = gen.device
+    dev = common.init_device(gen, device)
     s = 0.02
     f32 = dict(generator=gen, device=dev, dtype=torch.float32)
     b = torch.zeros((nh, 4, hd), dtype=torch.float32, device=dev)
@@ -171,7 +172,7 @@ def init_slstm(cfg: ArchConfig, gen: torch.Generator) -> Dict:
         "R": torch.randn((nh, hd, 4, hd), **f32) * s,
         "b": b,
         "out": common._normal(gen, (d, d), cfg,
-                              s / max(1, cfg.n_layers) ** 0.5),
+                              s / max(1, cfg.n_layers) ** 0.5, dev),
     }
 
 
@@ -242,15 +243,16 @@ def _groups(cfg: ArchConfig) -> Tuple[int, int]:
     return cfg.n_layers // (m + 1), m
 
 
-def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    """Seeded parameters on ``gen.device`` in the JAX package's layout
-    (the values follow ``gen``, not the JAX PRNG)."""
+def init(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
+    """Seeded parameters on ``device`` (default ``gen.device``) in the
+    JAX package's layout (the values follow ``gen``, not the JAX PRNG)."""
     G, m = _groups(cfg)
+    dev = common.init_device(gen, device)
     return {
-        "tok": common.init_embed(cfg, gen),
-        "mlstm": common.stacked(G * m, lambda: init_mlstm(cfg, gen)),
-        "slstm": common.stacked(G, lambda: init_slstm(cfg, gen)),
-        "ln_f": common.init_norm(cfg, cfg.d_model, gen.device),
+        "tok": common.init_embed(cfg, gen, dev),
+        "mlstm": common.stacked(G * m, lambda: init_mlstm(cfg, gen, dev)),
+        "slstm": common.stacked(G, lambda: init_slstm(cfg, gen, dev)),
+        "ln_f": common.init_norm(cfg, cfg.d_model, dev),
     }
 
 
@@ -262,16 +264,19 @@ def forward_train(cfg: ArchConfig, params: Dict, tokens, **_
     package checkpoints each block)."""
     G, m = _groups(cfg)
     dev = _device(params)
-    x = common.embed_tokens(cfg, params["tok"], _tokens(tokens, dev))
+    x = shard_act(common.embed_tokens(cfg, params["tok"],
+                                      _tokens(tokens, dev)), "residual")
     ml = common.unstack(params["mlstm"], G * m)
     sl = common.unstack(params["slstm"], G)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(fn, lp, x):
         if remat:
-            return checkpoint(fn, cfg, lp, x, use_reentrant=False,
-                              preserve_rng_state=False)
-        return fn(cfg, lp, x)
+            x = checkpoint(fn, cfg, lp, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = fn(cfg, lp, x)
+        return shard_act(x, "residual")
 
     for g in range(G):
         for j in range(m):
@@ -287,10 +292,8 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int = 0, dtype=torch.bfloat16,
     """Zero fp32 states on ``device`` (default cuda): ``mlstm`` {C, n,
     conv} [G m, ...] and ``slstm`` (c, n, h) [G, ...].  ``Smax`` and
     ``dtype`` are the shared cache signature's; the states hold neither."""
-    from repro_torch.core.store import resolve_device
-
     G, m = _groups(cfg)
-    dev = resolve_device(device)
+    dev = common.cache_device(device)
     return {
         "mlstm": {k: v.new_zeros((G * m,) + tuple(v.shape))
                   for k, v in init_mlstm_state(cfg, B, dev).items()},

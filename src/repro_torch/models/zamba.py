@@ -32,29 +32,30 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
+from repro_torch.distributed.ctx import shard_act
 from repro_torch.models import common, mamba2
 from repro_torch.models.transformer import _device, _tensor, _tokens
 
 
-def _init_shared(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    dev = gen.device
+def _init_shared(cfg: ArchConfig, gen: torch.Generator, dev) -> Dict:
     return {
         "ln1": common.init_norm(cfg, cfg.d_model, dev),
-        "attn": common.init_attention(cfg, gen),
+        "attn": common.init_attention(cfg, gen, dev),
         "ln2": common.init_norm(cfg, cfg.d_model, dev),
-        "mlp": common.init_mlp(cfg, gen),
+        "mlp": common.init_mlp(cfg, gen, device=dev),
     }
 
 
-def init(cfg: ArchConfig, gen: torch.Generator) -> Dict:
-    """Seeded parameters on ``gen.device`` in the JAX package's layout
-    (the values follow ``gen``, not the JAX PRNG)."""
+def init(cfg: ArchConfig, gen: torch.Generator, device=None) -> Dict:
+    """Seeded parameters on ``device`` (default ``gen.device``) in the
+    JAX package's layout (the values follow ``gen``, not the JAX PRNG)."""
+    dev = common.init_device(gen, device)
     return {
-        "tok": common.init_embed(cfg, gen),
+        "tok": common.init_embed(cfg, gen, dev),
         "mamba": common.stacked(cfg.n_layers,
-                                lambda: mamba2.init_block(cfg, gen)),
-        "shared": _init_shared(cfg, gen),
-        "ln_f": common.init_norm(cfg, cfg.d_model, gen.device),
+                                lambda: mamba2.init_block(cfg, gen, dev)),
+        "shared": _init_shared(cfg, gen, dev),
+        "ln_f": common.init_norm(cfg, cfg.d_model, dev),
     }
 
 
@@ -79,7 +80,8 @@ def forward_train(cfg: ArchConfig, params: Dict, tokens, **_
     shared block included) keeps only its input and reruns in the
     backward, as the JAX scan body is checkpointed."""
     dev = _device(params)
-    x = common.embed_tokens(cfg, params["tok"], _tokens(tokens, dev))
+    x = shard_act(common.embed_tokens(cfg, params["tok"],
+                                      _tokens(tokens, dev)), "residual")
     positions = torch.arange(x.shape[1], device=dev)
     k = cfg.hybrid_attn_every
     remat = cfg.remat and torch.is_grad_enabled()
@@ -91,6 +93,7 @@ def forward_train(cfg: ArchConfig, params: Dict, tokens, **_
                            preserve_rng_state=False)
         else:
             x = _layer(cfg, lp, params["shared"], x, positions, shared)
+        x = shard_act(x, "residual")
     x = common.apply_norm(cfg, params["ln_f"], x)
     logits = common.unembed(cfg, params["tok"], x)
     return logits, {"aux_loss": torch.zeros((), device=dev)}
@@ -104,9 +107,7 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, dtype=torch.bfloat16,
                device=None) -> Dict:
     """Zero states on ``device`` (default cuda): each layer's fp32 Mamba2
     state and a [n_occ, B, KVH, Smax, hd] KV cache in ``dtype``."""
-    from repro_torch.core.store import resolve_device
-
-    dev = resolve_device(device)
+    dev = common.cache_device(device)
     n_occ = cfg.n_layers // cfg.hybrid_attn_every
     st = mamba2.init_state(cfg, B, dev)
     shape = (n_occ, B, cfg.n_kv_heads, Smax, cfg.resolved_head_dim)

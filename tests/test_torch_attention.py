@@ -16,6 +16,8 @@ decode schedule with its combine held against the twin and the Pallas
 kernel.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -404,9 +406,23 @@ def test_flash_twin_holds_float64():
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
+    # a device with neither kernel, twin nor shape-only operator (meta is
+    # the dry run's: see tests/test_torch_dryrun.py); the wrappers read
+    # only its ``device`` before they refuse it
+    other = SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(other, other, other)
+    with pytest.raises(ValueError, match="device"):
+        decode_attention(other, other, other, other)
+    # on meta the kernels' own shape and device checks still hold
     q = torch.zeros(1, 2, 4, 8, device="meta")
-    with pytest.raises(ValueError, match="device"):
-        flash_attention(q, q[:, :1], q[:, :1])
-    with pytest.raises(ValueError, match="device"):
-        decode_attention(q[:, :, 0], q[:, :1], q[:, :1],
+    with pytest.raises(ValueError, match="GQA"):
+        flash_attention(q, torch.zeros(1, 1, 4, 4, device="meta"),
+                        torch.zeros(1, 1, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="expected meta"):
+        flash_attention(q, torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8))
+    with pytest.raises(ValueError, match="H % KVH"):
+        decode_attention(torch.zeros(1, 2, 8, device="meta"),
+                         torch.zeros(1, 3, 4, 8, device="meta"),
+                         torch.zeros(1, 3, 4, 8, device="meta"),
                          torch.zeros(1, dtype=torch.int32, device="meta"))

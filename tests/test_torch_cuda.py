@@ -1179,3 +1179,16 @@ def test_ssd_chunked_on_card_at_full_width(card, B, S, H, P, N, chunk):
         assert float(off.float().mean()) <= 5e-3
         assert float((got - want).abs().max()) <= 1e-2 * float(
             want.abs().max())
+
+
+def test_dryrun_leaves_the_card_untouched(card):
+    """A full-width meta trace of llama3.2-1b's train step: every tensor
+    on ``meta``, the card's allocated bytes unchanged."""
+    from repro_torch.launch.dryrun import run_cell
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rec = run_cell("llama3_2_1b", "train_4k", "single")
+    torch.cuda.synchronize()
+    assert rec["status"] == "OK" and rec["device"] == "meta"
+    assert torch.cuda.memory_allocated() == before

@@ -46,6 +46,13 @@ def test_api_imports_with_jax_blocked():
             "import repro_torch.core.batch, repro_torch.core.store\n"
             "import repro_torch.core.lifecycle, repro_torch.launch.serve\n"
             "import repro_torch.serve.engine, repro_torch.models.registry\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.ctx, repro_torch.kernels._meta\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "from repro_torch.config import get_arch\n"
+            "rec = repro_torch.launch.dryrun.run_cell('llama3_2_1b', "
+            "'decode_32k', 'single')\n"
+            "assert rec['status'] == 'OK', rec\n"
             "db = api.Uruv(api.UruvConfig(leaf_cap=8, max_leaves=64), "
             "device='cpu')\n"
             "db.insert([3, 1, 2], [30, 10, 20])\n"
