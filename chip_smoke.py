@@ -62,6 +62,23 @@ Phases, one line each (any failure exits non-zero):
                store's, routed and replicated passes, keys per shard,
                peak memory; two more fig9b plans profiled
                (``sharded-profile``)
+  4d. sharded-dist  the same store one shard a process: 4 ``spawn``
+               ranks, a gloo group of them on ``cuda:0``, each holding
+               its shard (``make_host_mesh(4, group=...)``), the passes'
+               collectives over the group; the sharded phase's workload
+               at its size, every answer against the oracle in every
+               rank, and every rank's answers, timestamps, pages, clock
+               and counters equal to the sharded phase's stacked
+               client's, its block to that store's shard (array
+               hashes); the store kernels' launches summed over the
+               ranks (each > 0), prefill s and fig9b ops/s of every rank
+               beside the stacked client's, the collectives of a fig9b
+               plan and the bytes a rank sends, each rank's peak memory.
+               Then a 1-rank NCCL group (with 4 cards also NCCL a rank a
+               card) runs 20,000 keys and 2 fig9b plans against a
+               stacked client of as many shards.  The ranks load the
+               libraries the parent built; each layout ends within 480 s
+               or fails
   5. cpu==cuda the same seeded plans at ``--reduced`` keys on ``cuda`` and
                on ``device="cpu"``: the two stores must be bit-equal;
                then the same for a 4-shard ``Uruv.sharded`` store
@@ -182,7 +199,7 @@ Phases, one line each (any failure exits non-zero):
                the first), 32 forward and 16 backward attention launches
                a step (remat reruns each layer's forward); no checkpoint
   8d. pipeline / train-serve  a ``StreamingSampleStore`` on the card
-               ingests 131,072 sample ids in plans of 4096; an epoch at a
+               ingests 98,304 sample ids in plans of 4096; an epoch at a
                held snapshot, read by 8 readers in one pass while 16,384
                more ids arrive, equals the host oracle; 4 batches of
                ``epoch_iterator`` (B = 8, S = 256) train the full-width
@@ -320,6 +337,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T0 = time.perf_counter()
+
 UNIVERSE = 2_000_000
 WIDTH = 4096
 RANGE_SIZE = 1000
@@ -382,6 +401,11 @@ HBM_CHASE_MIB = 256           # latency probe cycles: five times the L2 ...
 L2_CHASE_MIB = 4              # ... and far past L1, well inside the L2
 SCAN_PAGES = 8                # main path: scan_page calls under the snapshot
 SHARDS = 4                    # phase sharded: key-range shards on the card
+DIST_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dist"
+DIST_TIMEOUT_S = 120          # sharded-dist: a rank's rendezvous/collective
+DIST_LIMIT_S = 480            # ... every rank of a layout ends within this
+DIST_NCCL_PREFILL = 20_000    # ... the NCCL layouts' keys ...
+DIST_NCCL_PLANS = 2           # ... and fig9b plans
 DURABLE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_durable"
 TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 WORKER_CKPT_EVERY = 2         # durability workers: a checkpoint every 2 plans
@@ -390,7 +414,7 @@ TRAIN_B, TRAIN_S = 8, 256     # phase train: llama3.2-1b batch and sequence
 TRAIN_STEPS = 8               # ... steps, AdamW warmup over the first 2
 TRAIN_WARMUP = 2
 TRAIN_SERVE_BATCHES = 4       # phase train-serve: epoch batches trained on
-SAMPLE_IDS = 131_072          # phase pipeline: sample ids in the epoch ...
+SAMPLE_IDS = 98_304           # phase pipeline: sample ids in the epoch ...
 SAMPLE_EXTRA = 16_384         # ... ingested while the epoch is held
 SAMPLE_RETIRE = 65_536        # ... consumed ids retired, then compact
 # attention-bwd: the backward kernel within this share of the call's
@@ -437,6 +461,8 @@ def check(cond, msg: str) -> None:
 
 
 def say(phase: str, **kw) -> None:
+    """One phase line; ``at_s``: seconds since the script started."""
+    kw["at_s"] = f"{time.perf_counter() - T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -1382,48 +1408,39 @@ def _count_calls(fns: dict, counter: dict, kind: str) -> dict:
     return {k: wrap(f) for k, f in fns.items()}
 
 
-def sharded_phase(args, api) -> dict:
-    """``Uruv.sharded`` over ``make_host_mesh(SHARDS)``: SHARDS stores of
-    the main configuration stacked on the card, keys range-partitioned
-    over the 2,000,000-key universe.  The main path's workload (prefill in
-    routed plans of 4096, fig9b plans, a held-snapshot read), a plan whose
-    keys all fall on shard 0 (the routing budget overflows: the
-    replicated fallback) and ``make_ops``' ``range_q`` (the paper's
-    single-interval scan on every shard: the standalone
-    ``versioned_read``), every answer against the oracle; the launch
-    counts of that run; then a local ``Uruv`` fed the same seeded plans
-    must give the same values, timestamps, pages and clock.  The phase
-    draws from a generator of its own, so the phases after it see the
-    same data with and without it."""
-    from repro_torch.core import sharded as SH, store as S
-    from repro_torch.kernels import _build
-    from repro_torch.launch.mesh import make_host_mesh
+def sharded_workload(db, api, args, tag: str) -> dict:
+    """The sharded phases' workload on ``db`` (``Uruv.sharded``: stacked,
+    or one shard a process): the main path's (``--prefill`` keys in
+    routed plans ramped up to 4096, ``--plans`` fig9b plans, the
+    held-snapshot read), a plan whose keys all fall on shard 0 (the
+    routing budget overflows: the replicated fallback) and ``make_ops``'
+    ``range_q`` (the paper's single-interval scan on every shard: the
+    standalone ``versioned_read``), every answer against the oracle.  It
+    draws from a generator of its own (``--seed`` + 7), so every client
+    fed it sees the same plans and the phases after it the same data
+    with and without it.  Returns the trace of every answer, timestamp,
+    page and the clock, and the run's facts."""
+    from repro_torch.core import sharded as SH
 
-    base = api.UruvConfig(**MAIN_CFG)
-    cfg = api.ShardedConfig(base=base, key_lo=0, key_hi=UNIVERSE)
-    mesh = make_host_mesh(SHARDS)
+    cfg = db.executor.config
+    n = db.executor.n_shards
     rng = np.random.default_rng(args.seed + 7)
     seed = int(rng.integers(1 << 31))
     op = dict(insert=api.OP_INSERT, delete=api.OP_DELETE)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    db = api.Uruv.sharded(cfg, mesh)
-    pool_mib = store_mib(db.store)
     ex = db.executor
     passes = {"routed": 0, "replicated": 0}
     ex._routed_fns = _count_calls(ex._routed_fns, passes, "routed")
     ex._apply_fns = _count_calls(ex._apply_fns, passes, "replicated")
     oracle = Oracle(api.NOT_FOUND, api.TOMBSTONE)
     trace = []
-    _build.launch_counts.clear()
     facts = run_plans(db, api, np.random.default_rng(seed), oracle,
-                      args.prefill, args.plans, verify=True, tag="sharded",
+                      args.prefill, args.plans, verify=True, tag=tag,
                       trace=trace, ramp=True)
     routed_plans = dict(passes)
     # one plan of fig9b's CRUD mix whose keys all fall on shard 0: each
-    # source slice owes shard 0 all its WIDTH / SHARDS ops, twice the
-    # routing budget
-    span = cfg.span(SHARDS)
+    # source slice owes shard 0 all its WIDTH / n ops, twice the routing
+    # budget
+    span = cfg.span(n)
     r = rng.random(WIDTH)
     fb_codes = np.where(r < 0.9, api.OP_SEARCH, np.where(
         r < 0.95, api.OP_INSERT, api.OP_DELETE)).astype(np.int32)
@@ -1434,28 +1451,72 @@ def sharded_phase(args, api) -> dict:
     res = db.apply(fallback)
     check(np.array_equal(res.values,
                          oracle.crud(fb_codes, fb_keys, fb_vals, op)),
-          "sharded: the forced fallback's results differ from the oracle")
-    check(passes["routed"] - before["routed"] == 1
-          and passes["replicated"] - before["replicated"] == 1
-          and db.stats["device_passes"] - before["device"] == 2,
-          "sharded: the forced plan did not take the routed pass and then "
+          f"{tag}: the forced fallback's results differ from the oracle")
+    # (one shard owns every key: its budget, twice a slice, never runs out)
+    check(n == 1 or (passes["routed"] - before["routed"] == 1
+                     and passes["replicated"] - before["replicated"] == 1
+                     and db.stats["device_passes"] - before["device"] == 2),
+          f"{tag}: the forced plan did not take the routed pass and then "
           "the replicated fallback")
     trace += [res.values, res.timestamps, db.ts]
     # the paper's single-interval RANGEQUERY on every shard (range_q)
-    _, _, range_q = SH.make_ops(cfg, mesh)
+    _, _, range_q = SH.make_ops(cfg, ex.mesh)
     lo = rng.integers(0, UNIVERSE - RANGE_SIZE, SCAN_PAGES).astype(np.int32)
     with db.snapshot() as snap:
         for a in lo.tolist():
             keys, vals, cnt, trunc = (x.cpu().numpy() for x in range_q(
                 db.store, a, a + RANGE_SIZE - 1, snap))
+            trace += [keys, vals, cnt, trunc]
             exp = oracle.range(a, a + RANGE_SIZE - 1)
-            for s in range(SHARDS):
-                mine = exp[(exp[:, 0] // span).clip(0, SHARDS - 1) == s] \
+            for s in range(n):
+                mine = exp[(exp[:, 0] // span).clip(0, n - 1) == s] \
                     if len(exp) else exp
                 got = np.stack([keys[s, :cnt[s]], vals[s, :cnt[s]]], 1)
                 check(np.array_equal(got, mine[:len(got)])
                       and (bool(trunc[s]) or len(got) == len(mine)),
-                      f"sharded: range_q at {a}, shard {s}")
+                      f"{tag}: range_q at {a}, shard {s}")
+    trace.append(db.ts)
+    live = np.asarray(db.live_items(), np.int64).reshape(-1, 2)
+    ks = np.nonzero(oracle.val != api.NOT_FOUND)[0]
+    check(np.array_equal(live, np.stack([ks, oracle.val[ks]], 1)),
+          f"{tag}: live_items differs from the oracle")
+    return dict(trace=trace, facts=facts, passes=routed_plans, seed=seed,
+                fallback=fallback, oracle=oracle, span=span)
+
+
+def array_hashes(store) -> list:
+    """For each shard of a stacked store (or a member's block), the
+    sha256 of every array's bytes by name, with its dtype and shape."""
+    import hashlib
+
+    from repro_torch.core import store as S
+
+    arrays = S.to_numpy(store)
+    return [{name: (str(a.dtype), a.shape[1:], hashlib.sha256(
+        np.ascontiguousarray(a[s]).tobytes()).hexdigest())
+        for name, a in arrays.items()}
+        for s in range(store.ts.shape[0])]
+
+
+def sharded_phase(args, api) -> dict:
+    """``Uruv.sharded`` over ``make_host_mesh(SHARDS)``: SHARDS stores of
+    the main configuration stacked on the card, keys range-partitioned
+    over the 2,000,000-key universe, driven by :func:`sharded_workload`;
+    the launch counts of that run; then a local ``Uruv`` fed the same
+    seeded plans must give the same values, timestamps, pages and
+    clock."""
+    from repro_torch.core import store as S
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base = api.UruvConfig(**MAIN_CFG)
+    cfg = api.ShardedConfig(base=base, key_lo=0, key_hi=UNIVERSE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    db = api.Uruv.sharded(cfg, make_host_mesh(SHARDS))
+    pool_mib = store_mib(db.store)
+    _build.launch_counts.clear()
+    work = sharded_workload(db, api, args, "sharded")
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1464,25 +1525,25 @@ def sharded_phase(args, api) -> dict:
               f"kernel {name} never ran on the sharded path")
     for st in S.shard_views(db.store):
         S.check_invariants(st)
-    live = np.asarray(db.live_items(), np.int64).reshape(-1, 2)
+    hashes = array_hashes(db.store)
+    oracle, facts = work["oracle"], work["facts"]
     ks = np.nonzero(oracle.val != api.NOT_FOUND)[0]
-    check(np.array_equal(live, np.stack([ks, oracle.val[ks]], 1)),
-          "sharded: live_items differs from the oracle")
-    per_shard = np.bincount(np.minimum(ks // span, SHARDS - 1),
+    per_shard = np.bincount(np.minimum(ks // work["span"], SHARDS - 1),
                             minlength=SHARDS)
     stats = db.stats
 
     # the local store, fed the same seeded plans
     local = api.Uruv(base)
     local_trace = []
-    local_facts = run_plans(local, api, np.random.default_rng(seed),
+    local_facts = run_plans(local, api, np.random.default_rng(work["seed"]),
                             Oracle(api.NOT_FOUND, api.TOMBSTONE),
                             args.prefill, args.plans, verify=False,
                             tag="sharded-local", trace=local_trace,
                             ramp=True)
-    res = local.apply(fallback)
+    res = local.apply(work["fallback"])
     local_trace += [res.values, res.timestamps, local.ts]
-    check(_same_trace(trace, local_trace),
+    n_local = len(local_trace)
+    check(_same_trace(work["trace"][:n_local], local_trace),
           "sharded: results, timestamps, pages or clock differ from the "
           "local store's")
     del local
@@ -1493,8 +1554,8 @@ def sharded_phase(args, api) -> dict:
         mixed_ops_per_s=f"{ops_per_s[0]:.1f}",
         local_prefill_s=f"{local_facts['prefill_s']:.3f}",
         local_mixed_ops_per_s=f"{ops_per_s[1]:.1f}",
-        routed_passes=routed_plans["routed"],
-        replicated_passes=routed_plans["replicated"],
+        routed_passes=work["passes"]["routed"],
+        replicated_passes=work["passes"]["replicated"],
         device_passes=stats["device_passes"],
         slow_path_rounds=stats["slow_path_rounds"], grows=stats["grows"],
         maintain_passes=stats["maintain_passes"], fallback="exact",
@@ -1504,9 +1565,243 @@ def sharded_phase(args, api) -> dict:
         max_memory_allocated_mib=f"{peak_mib:.1f}",
         local="equal", launches=json.dumps(counts, sort_keys=True)
         .replace(" ", ""))
-    prof = profile_plans(db, api, rng, tag="sharded-profile")
+    prof = profile_plans(db, api, np.random.default_rng(args.seed + 8),
+                         tag="sharded-profile")
     return dict(counts=counts, facts=facts, local_facts=local_facts,
-                profile=prof)
+                profile=prof, trace=work["trace"], hashes=hashes,
+                stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: one shard a process over torch.distributed
+# ---------------------------------------------------------------------------
+
+class CollectiveCounter:
+    """Counts the calls and the bytes each member sends of every
+    collective of ``repro_torch.distributed.collectives`` (by wrapping the
+    module's functions; set up before the client, whose lifecycle
+    ``gather`` binds ``all_gather``), and per kind of plan: inserts only
+    (prefill) or fig9b (with RANGE ops)."""
+
+    KINDS = ("psum", "pmax", "all_gather", "all_to_all")
+
+    def __init__(self, module):
+        self.calls, self.bytes = {}, {}
+        self.plans = {"prefill": [0, {}, {}], "fig9b": [0, {}, {}]}
+        for kind in self.KINDS:
+            setattr(module, kind, self._wrap(kind, getattr(module, kind)))
+
+    def _wrap(self, kind, fn):
+        def run(x, group):
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.bytes[kind] = (self.bytes.get(kind, 0)
+                                + x.numel() * x.element_size())
+            return fn(x, group)
+        return run
+
+    def count_plans(self, db, op_range: int) -> None:
+        apply = db.apply
+
+        def counted(batch, **kw):
+            c0, b0 = dict(self.calls), dict(self.bytes)
+            res = apply(batch, **kw)
+            kind = ("fig9b" if (np.asarray(batch.codes) == op_range).any()
+                    else "prefill")
+            entry = self.plans[kind]
+            entry[0] += 1
+            for k in self.calls:
+                entry[1][k] = entry[1].get(k, 0) + self.calls[k] - c0.get(k, 0)
+                entry[2][k] = entry[2].get(k, 0) + self.bytes[k] - b0.get(k, 0)
+            return res
+        db.apply = counted
+
+
+def ops_per_s(facts: dict) -> float:
+    return facts["n_ops"] / max(facts["apply_s"], 1e-9)
+
+
+def sharded_dist_rank(rank: int, n: int, backend: str, devices: list,
+                      args, out_dir: str, spawned: float) -> None:
+    """One member of phase sharded-dist (a ``spawn`` process): its shard
+    of ``Uruv.sharded`` over a ``backend`` group of ``n`` on
+    ``cuda:devices[rank]``, driven by :func:`sharded_workload`; its
+    trace, block hashes, launches, collectives, timing and peak memory
+    pickled into ``out_dir``; ``ready_s`` counts from ``spawned`` (the
+    parent's ``time.monotonic()`` at the spawn).  It loads the kernel
+    libraries the parent built and never builds one."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    out_dir = Path(out_dir)
+    try:
+        import repro_torch.api as api
+        from repro_torch.distributed import collectives as C
+        from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_host_mesh
+
+        missing = [k for k in _build.SOURCES if not _build._target(k).exists()]
+        check(not missing, f"rank {rank}: libraries not built: {missing}")
+        dev = torch.device("cuda", devices[rank])
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"file://{out_dir / 'rdv'}", rank=rank,
+            world_size=n,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        counter = CollectiveCounter(C)
+        cfg = api.ShardedConfig(base=api.UruvConfig(**MAIN_CFG), key_lo=0,
+                                key_hi=UNIVERSE)
+        torch.cuda.reset_peak_memory_stats(dev)
+        db = api.Uruv.sharded(cfg, make_host_mesh(
+            n, device=dev, group=dist.group.WORLD))
+        counter.count_plans(db, api.OP_RANGE)
+        ready_s = time.monotonic() - spawned
+        _build.launch_counts.clear()
+        work = sharded_workload(db, api, args, f"sharded-dist rank {rank}")
+        torch.cuda.synchronize(dev)
+        counts = dict(_build.launch_counts)
+        # (its block's invariants: it equals a shard the sharded phase
+        # checked, hash for hash)
+        out = dict(counts=counts, trace=work["trace"], facts=work["facts"],
+                   passes=work["passes"], stats=db.stats,
+                   hashes=array_hashes(db.store)[0], plans=counter.plans,
+                   peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+                   device=str(dev), ready_s=ready_s,
+                   work_s=time.monotonic() - spawned - ready_s)
+        dist.destroy_process_group()
+        with open(out_dir / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def run_ranks(backend: str, devices: list, args) -> list:
+    """Spawn one :func:`sharded_dist_rank` a device in ``devices``, wait
+    for them within ``DIST_LIMIT_S`` (every one still alive then is
+    killed) and return their outputs in rank order; any failed rank fails
+    the phase."""
+    import multiprocessing
+    import pickle
+    import shutil
+
+    out_dir = DIST_DIR / f"{backend}-{len(devices)}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    spawned = time.monotonic()
+    procs = [ctx.Process(target=sharded_dist_rank,
+                         args=(r, len(devices), backend, devices, args,
+                               str(out_dir), spawned))
+             for r in range(len(devices))]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_LIMIT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = [f"rank {r}: {e.read_text()}" for r, e in
+            ((r, out_dir / f"rank{r}.err") for r in range(len(procs)))
+            if e.exists()]
+    check(not late and not errs and all(p.exitcode == 0 for p in procs),
+          f"sharded-dist {backend} x {len(devices)}: ranks {late} outlived "
+          f"{DIST_LIMIT_S} s, exit codes {[p.exitcode for p in procs]}\n"
+          + "\n".join(errs))
+    outs = []
+    for r in range(len(procs)):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def stacked_reference(api, args, n: int) -> dict:
+    """A stacked ``Uruv.sharded`` of ``n`` shards on the card fed
+    :func:`sharded_workload`: the reference of a reduced layout."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = api.ShardedConfig(base=api.UruvConfig(**MAIN_CFG), key_lo=0,
+                            key_hi=UNIVERSE)
+    db = api.Uruv.sharded(cfg, make_host_mesh(n))
+    work = sharded_workload(db, api, args, f"sharded-dist stacked x {n}")
+    return dict(trace=work["trace"], hashes=array_hashes(db.store),
+                facts=work["facts"], stats=db.stats)
+
+
+def sharded_dist_phase(args, api, sharded: dict) -> dict:
+    """Phase sharded-dist: the sharded store one shard a process.  Four
+    ``spawn`` ranks over gloo share ``cuda:0`` at the sharded phase's size
+    (main's configuration, ``--prefill`` keys, ``--plans`` fig9b plans);
+    each must answer as the oracle and give the sharded phase's stacked
+    client's trace (answers, timestamps, pages, clock), counters and, for
+    rank r, its shard r array by array; every store kernel runs in the
+    ranks.  Then a 1-rank NCCL group (and, with four cards, NCCL one rank
+    a card) runs the workload reduced, against a stacked client of as
+    many shards fed the same plans."""
+    small = argparse.Namespace(**dict(vars(args), prefill=DIST_NCCL_PREFILL,
+                                      plans=DIST_NCCL_PLANS))
+    layouts = [("gloo", [0] * SHARDS, args)]
+    layouts.append(("nccl", [0], small))
+    if torch.cuda.device_count() >= SHARDS:
+        layouts.append(("nccl", list(range(SHARDS)), small))
+    res = {}
+    for backend, devices, a in layouts:
+        n = len(devices)
+        tag = f"sharded-dist {backend} x {n}"
+        t0 = time.perf_counter()
+        outs = run_ranks(backend, devices, a)
+        secs = time.perf_counter() - t0
+        ref = sharded if a is args else stacked_reference(api, a, n)
+        for r, o in enumerate(outs):
+            check(_same_trace(o["trace"], ref["trace"]),
+                  f"{tag}: rank {r}'s answers, timestamps, pages or clock "
+                  "differ from the stacked client's")
+            check(o["stats"] == ref["stats"],
+                  f"{tag}: rank {r}'s stats {o['stats']} differ from the "
+                  f"stacked client's {ref['stats']}")
+            check(o["hashes"] == ref["hashes"][r],
+                  f"{tag}: rank {r}'s block differs from shard {r} in "
+                  + ",".join(k for k in o["hashes"]
+                             if o["hashes"][k] != ref["hashes"][r].get(k)))
+        launches = {}
+        for o in outs:
+            for k, v in o["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+        for name in STORE_KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"{tag}: kernel {name} never ran in the ranks")
+        facts = outs[0]["facts"]
+        n_fig9b, calls, nbytes = outs[0]["plans"]["fig9b"]
+        say("sharded-dist", backend=backend, ranks=n,
+            devices=",".join(o["device"] for o in outs),
+            keys=a.prefill, plans=a.plans, seconds=f"{secs:.1f}",
+            ready_s=",".join(f"{o['ready_s']:.1f}" for o in outs),
+            work_s=",".join(f"{o['work_s']:.1f}" for o in outs),
+            prefill_s=",".join(f"{o['facts']['prefill_s']:.3f}"
+                               for o in outs),
+            mixed_ops_per_s=",".join(f"{ops_per_s(o['facts']):.1f}"
+                                     for o in outs),
+            stacked_prefill_s=f"{ref['facts']['prefill_s']:.3f}",
+            stacked_mixed_ops_per_s=f"{ops_per_s(ref['facts']):.1f}",
+            routed_passes=outs[0]["passes"]["routed"],
+            replicated_passes=outs[0]["passes"]["replicated"],
+            fig9b_collectives_per_plan=json.dumps(
+                {k: round(v / max(n_fig9b, 1), 2)
+                 for k, v in sorted(calls.items())}).replace(" ", ""),
+            fig9b_bytes_per_plan_per_rank=json.dumps(
+                {k: round(v / max(n_fig9b, 1))
+                 for k, v in sorted(nbytes.items())}).replace(" ", ""),
+            peak_mib=",".join(f"{o['peak_mib']:.1f}" for o in outs),
+            stacked="equal", oracle="exact",
+            launches=json.dumps(launches, sort_keys=True).replace(" ", ""))
+        res[f"{backend}-{n}"] = dict(launches=launches, facts=facts,
+                                     seconds=secs)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4647,6 +4942,7 @@ def main() -> int:
     baseline_phase(api, np.random.default_rng(args.seed + 21), main_res)
     profile_plans(main_res.pop("db"), api, rng)
     sharded_res = sharded_phase(args, api)
+    dist_res = sharded_dist_phase(args, api, sharded_res)
     cpu_equals_cuda(args, api)
     cpu_equals_cuda(args, api, tag="sharded-cpu==cuda", seed=5, ramp=True,
                     make=lambda dev: api.Uruv.sharded(
@@ -4690,6 +4986,8 @@ def main() -> int:
             + search_positions_report(main_res, api, rng, lat["l2"]))
     for row in rows:
         row["sharded_launches"] = sharded_res["counts"].get(row["name"], 0)
+        row["sharded_dist_launches"] = dist_res["gloo-4"]["launches"].get(
+            row["name"], 0)
     locate_report(main_res)
     say("done", seconds=f"{time.perf_counter() - t_all:.1f}", card=repr(card))
     print(json.dumps({"kernels": rows}))

@@ -30,7 +30,9 @@ import contextlib
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core import lifecycle as _lifecycle
 from repro_torch.core import store as _store
 from repro_torch.core.ref import KEY_MAX, OP_RANGE
 from repro_torch.api.executors import (
@@ -90,8 +92,9 @@ class Uruv:
                 policy: Optional[LifecyclePolicy] = None) -> "Uruv":
         """A client over a key-range-sharded store: ``config`` is a
         ``repro_torch.core.sharded.ShardedConfig``, the shards are
-        ``mesh``'s data axis, stacked on ``mesh.device``
-        (``repro_torch.launch.mesh.make_host_mesh``)."""
+        ``mesh``'s data axis (``repro_torch.launch.mesh.make_host_mesh``),
+        stacked on ``mesh.device``, or one a process of ``mesh.group``:
+        every member then makes the same calls and gets whole answers."""
         return cls(executor=ShardedExecutor(
             config, mesh, route_factor=route_factor, routed=routed,
             policy=policy), store=store)
@@ -165,11 +168,14 @@ class Uruv:
         ``compactions`` / ``grows`` / ``maintain_passes`` /
         ``leaves_reclaimed``) plus the store's index counters
         ``index_delta_passes`` and ``index_propagations`` (a sharded
-        store sums its shards)."""
+        store sums its shards, over the group too: every member reads the
+        same)."""
         s = dict(self.executor.stats)
         idx = self._store.index
-        s["index_delta_passes"] = int(idx.stat_delta_passes.sum())
-        s["index_propagations"] = int(idx.stat_propagations.sum())
+        s["index_delta_passes"], s["index_propagations"] = _lifecycle.across(
+            torch.stack([idx.stat_delta_passes.sum(),
+                         idx.stat_propagations.sum()]),
+            self.executor.gather).sum(0).tolist()
         return s
 
     @property
@@ -395,11 +401,7 @@ class Uruv:
     # ------------------------------------------------------------ inspection
     def live_items(self) -> List[Tuple[int, int]]:
         """All (key, latest live value) pairs in key order (host-side)."""
-        store = self._store
-        if _store.is_stacked(store):           # sharded: walk every shard
-            return sorted(kv for st in _store.shard_views(store)
-                          for kv in _store.live_items(st))
-        return _store.live_items(store)
+        return self.executor.live_items(self._store)
 
     def __len__(self) -> int:
         return len(self.live_items())

@@ -27,15 +27,18 @@ the trigger.  :data:`FIXED_FOOTPRINT` keeps the configured pools, and a
 store that cannot fit the working set raises ``CapacityError``.
 
 `LocalExecutor` runs on one store via ``repro_torch.core.batch``;
-`ShardedExecutor` runs the same plans over a key-range-sharded stacked
-store (``repro_torch.core.sharded``: routed or replicated announce
+`ShardedExecutor` runs the same plans over a key-range-sharded store
+(``repro_torch.core.sharded``: routed or replicated announce
 distribution, merged range passes) with bit-identical linearization,
-version timestamps included.
+version timestamps included: all shards stacked in one process, or one
+shard a process over a ``torch.distributed`` group, where every member
+runs every verb and gets the whole answer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +49,7 @@ from repro_torch.core import lifecycle as _lifecycle
 from repro_torch.core import sharded as _sharded
 from repro_torch.core import store as _store
 from repro_torch.api.opbatch import OpBatch, RangePage
+from repro_torch.distributed import collectives as _collectives
 
 CapacityError = _batch.CapacityError
 
@@ -78,6 +82,8 @@ class LocalExecutor:
     pools.  The live capacities are ``store.cfg``; ``config`` keeps the
     initial sizes once the store has grown.
     """
+
+    gather = None          # one process: no group to read counters over
 
     def __init__(self, config: Optional[_store.UruvConfig] = None, *,
                  device=None, policy: Optional[LifecyclePolicy] = None):
@@ -230,10 +236,16 @@ class LocalExecutor:
         self.stats["reindexes"] = self.stats.get("reindexes", 0) + 1
         return _store.reindex(store)
 
+    def live_items(self, store) -> List[Tuple[int, int]]:
+        return _store.live_items(store)
+
 
 class ShardedExecutor:
     """Key-range-sharded execution (``repro_torch.core.sharded``) over the
-    shards of ``mesh``'s data axis, stacked on ``mesh.device``.
+    shards of ``mesh``'s data axis: stacked on ``mesh.device``, or, with
+    ``mesh.group``, this process's shard (its [1] block) on its own
+    device, every verb run by every member of the group alike and giving
+    each the whole answer.
 
     Wraps the sharded passes — ``make_routed_apply`` (used first when the
     global width divides the shard count), ``make_apply`` (the replicated
@@ -252,7 +264,9 @@ class ShardedExecutor:
     rejections relieve the flagged pool and retry, bounded by
     ``MAX_SLOWPATH_ROUNDS``; with ``auto_grow=False`` a fully rejected
     announce raises ``CapacityError`` (there is no sharded halving slow
-    path).
+    path).  Over a group the lifecycle's counters are read across the
+    members (``gather``), so every member decides from the numbers the
+    stacked store reads and the blocks keep one shape.
     """
 
     def __init__(self, config: _sharded.ShardedConfig, mesh, *,
@@ -262,6 +276,10 @@ class ShardedExecutor:
         self.mesh = mesh
         self.device = mesh.device
         self.n_shards = mesh.shape[config.axis_name]
+        self.group = mesh.group
+        # stacks a member's counters over the group (lifecycle.across)
+        self.gather = None if mesh.group is None else functools.partial(
+            _collectives.all_gather, group=mesh.group)
         self.route_factor = route_factor
         self.routed = routed
         self.policy = policy if policy is not None \
@@ -299,7 +317,7 @@ class ShardedExecutor:
         store, reclaimed, merged = _lifecycle.maintain(
             store,
             budget if budget is not None else self.policy.maintain_budget,
-            phase=phase)
+            phase=phase, gather=self.gather)
         self.stats["maintain_passes"] += 1
         self.stats["leaves_reclaimed"] += reclaimed
         return store, reclaimed, merged
@@ -307,7 +325,8 @@ class ShardedExecutor:
     def lifecycle_tick(self, store):
         return _lifecycle.lifecycle_tick(
             store, self.policy, stats=self.stats,
-            grow_fn=lambda st: self.grow(st, leaves=True))
+            grow_fn=lambda st: self.grow(st, leaves=True),
+            gather=self.gather)
 
     # ----------------------------------------------------------------- write
     def _apply_crud(self, store, codes, keys, values, light_path: bool):
@@ -324,7 +343,7 @@ class ShardedExecutor:
                 return _sharded.sharded_apply_batch(
                     store, codes, keys, values,
                     apply_fn=self._apply_fns[light_path], routed_fn=routed,
-                    stats=self.stats)
+                    stats=self.stats, group=self.group)
             except RuntimeError as e:    # full rejection: relieve + retry
                 reason = getattr(e, "oflow_reason", 0)
                 grow_bits = reason & (_store.OFLOW_LEAVES
@@ -339,7 +358,8 @@ class ShardedExecutor:
                 relief = index_bit | (
                     grow_bits if self.policy.auto_grow else 0)
                 store = _lifecycle.relieve_pressure(
-                    store, relief, len(codes), self.policy, stats=self.stats)
+                    store, relief, len(codes), self.policy, stats=self.stats,
+                    gather=self.gather)
         raise CapacityError("sharded capacity retries failed to converge",
                             store=store)
 
@@ -418,10 +438,23 @@ class ShardedExecutor:
     def compact(self, store):
         self.stats["compactions"] += 1
         store, n_live = _store.compact(store)
-        return store, int(n_live.sum())
+        return store, int(_lifecycle.across(n_live.sum().reshape(1),
+                                            self.gather).sum())
 
     def reindex(self, store):
         """Repack every shard's index (replicated decision: shard shapes
         stay equal, results unchanged)."""
         self.stats["reindexes"] = self.stats.get("reindexes", 0) + 1
         return _store.reindex(store)
+
+    def live_items(self, store) -> List[Tuple[int, int]]:
+        """Every shard's (key, value) pairs in key order (every member's,
+        gathered, over a group)."""
+        items = [kv for st in _store.shard_views(store)
+                 for kv in _store.live_items(st)]
+        if self.group is not None:
+            rows = torch.tensor(items, dtype=torch.int64,
+                                device=self.device).reshape(-1, 2)
+            items = [tuple(kv) for kv in _collectives.gather_rows(
+                rows, self.group).tolist()]
+        return sorted(items)

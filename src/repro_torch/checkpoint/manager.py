@@ -16,7 +16,13 @@ A port of ``repro.checkpoint.manager`` (DESIGN.md Sec 3 and 14):
 
 A stacked (sharded) store saves with ``uruv_shards`` = its shard count
 and ``uruv_ts`` = its clock, every array with its leading shard axis,
-and restores stacked, in the JAX package's format both ways.
+and restores stacked, in the JAX package's format both ways.  A store
+sharded one shard a process saves from its ``torch.distributed`` group
+(``group=``): the members' blocks are gathered, member 0 writes the
+stacked layout, and the members meet at a barrier; a stacked checkpoint
+restores onto a group with ``shardings=GroupPlacement(group)``
+(``repro_torch.distributed.fault``), each member loading its block, as
+the JAX package's elastic ``shardings=`` restore does.
 
 ``save_store_delta`` writes only what changed since the previous save in
 this manager: per array ``same`` (nothing written), ``rows`` (changed
@@ -64,7 +70,8 @@ from repro_torch.core.lifecycle import (
 from repro_torch.core.store import (
     from_numpy, is_stacked, resolve_device, to_numpy,
 )
-from repro_torch.distributed.fault import crash_point
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.fault import GroupPlacement, crash_point, reshard
 
 
 def _disk_name(name: str) -> str:
@@ -258,19 +265,25 @@ class CheckpointManager:
                     f"{list(out[name].shape)} != {rec['shape']}")
         return out
 
-    def restore(self, like, step: Optional[int] = None):
+    def restore(self, like, step: Optional[int] = None, shardings=None):
         """Restore a tree of the structure of ``like`` (its leaves only
         name the arrays: tensors, or None) at ``step`` (default: the
-        newest complete one) onto the manager's device.  Returns
-        ``(tree, step)``."""
+        newest complete one) onto the manager's device, or elastically
+        onto ``shardings`` (placements as ``fault.reshard`` takes them:
+        one for every leaf, or a congruent tree).  Returns ``(tree,
+        step)``."""
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError("no complete checkpoint found")
         by_name = self._host_leaves(step)
-        return _tree_names(like, lambda name, _: torch.as_tensor(
-            by_name[name], device=self.device)), step
+        if shardings is None:
+            return _tree_names(like, lambda name, _: torch.as_tensor(
+                by_name[name], device=self.device)), step
+        host = _tree_names(like, lambda name, _: torch.as_tensor(
+            by_name[name]))
+        return reshard(host, shardings), step
 
     # ------------------------------------------------- store-aware round-trip
     @staticmethod
@@ -279,17 +292,41 @@ class CheckpointManager:
                 "uruv_shards": store.ts.shape[0] if is_stacked(store) else 0,
                 "uruv_ts": int(store.ts.max())}
 
-    def save_store(self, store, step: int, *, compactions: int = 0) -> None:
+    @staticmethod
+    def _gathered(store, group):
+        """A member's block -> the whole stacked store, on the host."""
+        if group is None:
+            return store
+        return reshard(store, "cpu", current=GroupPlacement(group,
+                                                            store.device))
+
+    def _group_done(self, group) -> None:
+        """Member 0 has published; the others meet it at a barrier and
+        read the step catalogue back from the directory."""
+        if group is None:
+            return
+        self.wait()
+        C.barrier(group)
+        if C.axis_index(group) != 0:
+            self.index = Uruv(self.index.config, device=self.device)
+            self._load_existing()
+
+    def save_store(self, store, step: int, *, compactions: int = 0,
+                   group=None) -> None:
         """Checkpoint a port store (local or stacked) in full, its LIVE
         capacities recorded in the manifest; (re)bases the delta chain on
-        this save."""
+        this save.  With ``group`` every member passes its block: member
+        0 writes the stacked store of them all."""
+        store = self._gathered(store, group)
         flat = _flatten(store)
         self._delta_base = (step, dict(flat))
         self._delta_marks = pool_watermarks(store, compactions=compactions)
-        self.save(flat, step, extra=self._store_extra(store))
+        if group is None or C.axis_index(group) == 0:
+            self.save(flat, step, extra=self._store_extra(store))
+        self._group_done(group)
 
-    def save_store_delta(self, store, step: int, *,
-                         compactions: int = 0) -> Dict[str, int]:
+    def save_store_delta(self, store, step: int, *, compactions: int = 0,
+                         group=None) -> Dict[str, int]:
         """Checkpoint only what changed since the last ``save_store`` /
         ``save_store_delta`` in this manager.
 
@@ -298,13 +335,15 @@ class CheckpointManager:
         tail, from the ``version_tail_start`` watermark, without a diff),
         or ``full`` (0-d scalars that changed, shape changes after
         ``grow``, diffs too dense for a sparse win).  Returns per-mode
-        array counts.  Requires a prior :meth:`save_store` here."""
+        array counts.  Requires a prior :meth:`save_store` here.  With
+        ``group`` as :meth:`save_store`."""
         if self._delta_base is None:
             raise ValueError(
                 "save_store_delta requires a prior save_store in this "
                 "manager (the delta chain needs a base full save)")
         self.wait()
         base_step, base = self._delta_base
+        store = self._gathered(store, group)
         flat = _flatten(store)
         host = dict(flat)
         tail_start = version_tail_start(
@@ -360,14 +399,19 @@ class CheckpointManager:
                     manifest["leaves"].append(rec)
                 (tmp / "manifest.json").write_text(json.dumps(manifest))
 
-        self._run_write(write)
+        if group is None or C.axis_index(group) == 0:
+            self._run_write(write)
+        self._group_done(group)
         return counts
 
-    def restore_store(self, step: Optional[int] = None):
+    def restore_store(self, step: Optional[int] = None, shardings=None):
         """Rebuild the store saved by :meth:`save_store` (or a
         :meth:`save_store_delta` chain) on the manager's device, at the
         manifest's recorded ``UruvConfig``; a stacked store (``uruv_shards``
-        > 0) comes back stacked.  Returns ``(store, step)``."""
+        > 0) comes back stacked, or with ``shardings`` (a placement of
+        ``fault.reshard``: a device, or a ``GroupPlacement`` whose group
+        has ``uruv_shards`` members, each then loading its [1] block)
+        elastically.  Returns ``(store, step)``."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -380,7 +424,14 @@ class CheckpointManager:
         arrays = {_port_name(k): v
                   for k, v in self._host_leaves(step).items()}
         cfg = UruvConfig(**manifest["uruv_config"])
-        return from_numpy(arrays, cfg, self.device), step
+        if shardings is None:
+            return from_numpy(arrays, cfg, self.device), step
+        if isinstance(shardings, GroupPlacement) and manifest.get(
+                "uruv_shards") != C.axis_size(shardings.group):
+            raise ValueError(
+                f"checkpoint step {step} holds {manifest.get('uruv_shards')}"
+                f" shards, the group {C.axis_size(shardings.group)} members")
+        return reshard(from_numpy(arrays, cfg, "cpu"), shardings), step
 
     def store_ts(self, step: Optional[int] = None) -> int:
         """The clock recorded at a ``save_store*`` step (manifest field —

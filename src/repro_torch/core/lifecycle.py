@@ -22,9 +22,14 @@ a leading [n_shards] axis, ``repro_torch.core.sharded``) is handled
 shard by shard as the JAX package's ``vmap`` does: every shard grows and
 maintains in the same call, so shard shapes stay equal, and the
 counters the triggers read are summed (or, for the grow trigger, the
-largest shard's) in one host read.  Where the reference scatters with
-``mode="drop"``, the port aims the dropped writes at a sink slot
-(``repro_torch.core._ops``).
+largest shard's) in one host read.  A member's block of a store sharded
+one shard a process holds only its own shard: the readers then take
+``gather`` (the executor's ``all_gather`` over its group), and the
+counters are summed or maximised over every member in that read, so
+every member takes the same grow, maintain, compact and reindex
+decision from the numbers the stacked store reads.  Where the reference
+scatters with ``mode="drop"``, the port aims the dropped writes at a
+sink slot (``repro_torch.core._ops``).
 """
 
 from __future__ import annotations
@@ -69,6 +74,14 @@ class LifecyclePolicy:
 
 
 DEFAULT_POLICY = LifecyclePolicy()
+
+
+def across(x: torch.Tensor, gather=None) -> torch.Tensor:
+    """This store's partial counters ``x`` ([k]: sums or maxima over its
+    shards) as ``[members, k]``: one row, or with ``gather`` (a function
+    stacking every member's ``x``) one row a member of the group, to be
+    summed or maximised along dim 0."""
+    return x[None] if gather is None else gather(x)
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +330,8 @@ def _maintain(store: S.UruvStore, phase: int, budget: int):
     return new, store.n_alloc - n_alloc, n_merged
 
 
-def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0
-             ) -> Tuple[S.UruvStore, int, int]:
+def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0,
+             gather=None) -> Tuple[S.UruvStore, int, int]:
     """ONE bounded incremental maintenance pass.
 
     Rewrites at most ``budget`` adjacent leaf pairs — purging keys whose
@@ -330,7 +343,8 @@ def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0
     the tracker are untouched: every result, reads at any registered
     snapshot included, is the same before and after.  Alternate ``phase``
     (0/1) between calls to cover both pair parities.  A stacked store
-    maintains every shard and returns the summed counts.
+    maintains every shard and returns the summed counts (summed over the
+    group too, with ``gather``).
     """
     if not S.is_stacked(store):
         new, reclaimed, merged = _maintain(store, phase % 2, budget)
@@ -338,9 +352,9 @@ def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0
         return new, reclaimed, merged
     outs = [_maintain(v, phase % 2, budget) for v in S.shard_views(store)]
     new = S.stack_shards([o[0] for o in outs], base=store)
-    reclaimed, merged = torch.stack(
+    reclaimed, merged = across(torch.stack(
         [torch.stack([o[1] for o in outs]).sum(),
-         torch.stack([o[2] for o in outs]).sum()]).tolist()
+         torch.stack([o[2] for o in outs]).sum()]), gather).sum(0).tolist()
     return new, reclaimed, merged
 
 
@@ -368,7 +382,8 @@ def pool_watermarks(store: S.UruvStore, *,
                     compactions: int = 0) -> PoolWatermarks:
     """Read the allocator watermarks (one host transfer; a stacked store
     reports per-shard maxima, and :func:`version_tail_start` then turns
-    the tail fast path off)."""
+    the tail fast path off).  A group's save gathers its members' blocks
+    into the stacked store before it reads them."""
     ts, n_alloc, n_vers, n_leaves = torch.stack(
         [store.ts, store.n_alloc, store.n_vers, store.n_leaves]
     ).reshape(4, -1).amax(1).tolist()
@@ -417,23 +432,26 @@ def leaf_accounting(store: S.UruvStore) -> Dict[str, int]:
     }
 
 
-def live_key_count(store: S.UruvStore) -> int:
+def live_key_count(store: S.UruvStore, gather=None) -> int:
     """Keys held by index-referenced leaves (tombstoned keys count until
     maintenance purges them): a pool-occupancy figure."""
     ref = store.index.leaf_ent >= 0
-    return int(store.leaf_count[ref].sum())
+    return int(across(store.leaf_count[ref].sum().reshape(1),
+                      gather).sum())
 
 
-def dead_fraction(store: S.UruvStore) -> float:
+def dead_fraction(store: S.UruvStore, gather=None) -> float:
     """Dead (unreferenced-but-allocated) fraction of the leaf pool."""
-    n_alloc, live = torch.stack([store.n_alloc.sum(),
-                                 store.n_leaves.sum()]).tolist()
+    n_alloc, live = across(torch.stack([store.n_alloc.sum(),
+                                        store.n_leaves.sum()]),
+                           gather).sum(0).tolist()
     return (n_alloc - live) / max(n_alloc, 1)
 
 
 def run_maintenance(store: S.UruvStore, policy: LifecyclePolicy, *,
                     stats: Optional[Dict[str, int]] = None,
-                    max_passes: Optional[int] = None) -> S.UruvStore:
+                    max_passes: Optional[int] = None,
+                    gather=None) -> S.UruvStore:
     """Bounded burst of maintain passes with alternating phase: stops
     after ``max_passes`` (default ``policy.maintain_passes``), when a pass
     reclaims and merges nothing, or when the dead fraction falls under
@@ -441,36 +459,39 @@ def run_maintenance(store: S.UruvStore, policy: LifecyclePolicy, *,
     passes = max_passes if max_passes is not None else policy.maintain_passes
     for p in range(passes):
         store, reclaimed, merged = maintain(store, policy.maintain_budget,
-                                            phase=p % 2)
+                                            phase=p % 2, gather=gather)
         if stats is not None:
             stats["maintain_passes"] = stats.get("maintain_passes", 0) + 1
             stats["leaves_reclaimed"] = (stats.get("leaves_reclaimed", 0)
                                          + reclaimed)
         if reclaimed == 0 and merged == 0:
             break
-        if dead_fraction(store) < policy.frozen_trigger / 2:
+        if dead_fraction(store, gather) < policy.frozen_trigger / 2:
             break
     return store
 
 
 def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
                    stats: Optional[Dict[str, int]] = None,
-                   grow_fn=None) -> S.UruvStore:
+                   grow_fn=None, gather=None) -> S.UruvStore:
     """The post-apply interleave: a bounded maintain burst on the
     frozen-fraction trigger first, then proactive growth re-checked on
     the maintained store.  ``grow_fn(store)`` lets an executor wrap its
     own growth (and count it).  The maintain trigger reads the pools'
-    sums, the grow trigger the fullest shard's allocator."""
+    sums, the grow trigger the fullest shard's allocator (over the group
+    too, with ``gather``)."""
     if not (policy.auto_grow or policy.auto_maintain):
         return store
-    n_alloc, n_leaves, alloc_max = torch.stack(
-        [store.n_alloc.sum(), store.n_leaves.sum(),
-         store.n_alloc.max().long()]).tolist()
+    parts = across(torch.stack([store.n_alloc.sum(), store.n_leaves.sum(),
+                                store.n_alloc.max().long()]), gather)
+    n_alloc, n_leaves, alloc_max = torch.cat(
+        [parts[:, :2].sum(0), parts[:, 2:].amax(0)]).tolist()
     dead = n_alloc - n_leaves
     if (policy.auto_maintain and dead >= policy.min_dead_leaves
             and dead / max(n_alloc, 1) >= policy.frozen_trigger):
-        store = run_maintenance(store, policy, stats=stats)
-        alloc_max = int(store.n_alloc.max())
+        store = run_maintenance(store, policy, stats=stats, gather=gather)
+        alloc_max = int(across(store.n_alloc.max().reshape(1),
+                               gather).max())
     if (policy.auto_grow
             and alloc_max > policy.grow_occupancy * store.cfg.max_leaves):
         if grow_fn is None:
@@ -484,7 +505,8 @@ def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
 
 def relieve_pressure(store: S.UruvStore, reason: int, width: int,
                      policy: LifecyclePolicy, *,
-                     stats: Optional[Dict[str, int]] = None) -> S.UruvStore:
+                     stats: Optional[Dict[str, int]] = None,
+                     gather=None) -> S.UruvStore:
     """One pressure-relief step for a capacity-rejected batch.
 
     ``OFLOW_LEAVES``: burst ``maintain`` when the dead fraction is above
@@ -492,35 +514,42 @@ def relieve_pressure(store: S.UruvStore, reason: int, width: int,
     pool.  ``OFLOW_VERSIONS``: ``compact()`` first when the pool is mostly
     reclaimable, then double the version pool until the batch fits.
     ``OFLOW_INDEX``: repack the index.  Every step strictly increases free
-    capacity, so the caller's retry loop converges.
+    capacity, so the caller's retry loop converges.  Over a group,
+    ``reason`` is every member's bits and ``gather`` reduces the counters.
     """
     if reason & S.OFLOW_INDEX:
         if stats is not None:
             stats["reindexes"] = stats.get("reindexes", 0) + 1
         store = S.reindex(store)
     if reason & S.OFLOW_LEAVES:
-        before = int(store.n_alloc.sum())
-        if dead_fraction(store) >= policy.frozen_trigger:
+        def allocated(st):
+            return int(across(st.n_alloc.sum().reshape(1), gather).sum())
+
+        before = allocated(store)
+        if dead_fraction(store, gather) >= policy.frozen_trigger:
             store = run_maintenance(store, policy, stats=stats,
-                                    max_passes=policy.pressure_passes)
-        if int(store.n_alloc.sum()) >= before:
+                                    max_passes=policy.pressure_passes,
+                                    gather=gather)
+        if allocated(store) >= before:
             store = grow(store, leaves=True)
             if stats is not None:
                 stats["grows"] = stats.get("grows", 0) + 1
     if reason & S.OFLOW_VERSIONS:
         cfg = store.cfg
-        n_vers, n_vers_sum = torch.stack(
-            [store.n_vers.max().long(), store.n_vers.sum()]).tolist()
+        parts = across(torch.stack([store.n_vers.max().long(),
+                                    store.n_vers.sum()]), gather)
+        n_vers, n_vers_sum = int(parts[:, 0].max()), int(parts[:, 1].sum())
         # compact() can reclaim at most sum(n_vers) - live_keys versions
         # (every surviving key keeps >= 1): skip it when that cannot fit
         # the batch
-        reclaimable_bound = n_vers_sum - live_key_count(store)
+        reclaimable_bound = n_vers_sum - live_key_count(store, gather)
         if (reclaimable_bound >= width
                 and n_vers >= policy.version_gc_fraction * cfg.max_versions):
             if stats is not None:
                 stats["compactions"] = stats.get("compactions", 0) + 1
             store, _ = S.compact(store)
-            n_vers = int(store.n_vers.max())
+            n_vers = int(across(store.n_vers.max().reshape(1),
+                                gather).max())
         while n_vers + width > store.cfg.max_versions:
             store = grow(store, versions=True)
             if stats is not None:

@@ -1,17 +1,29 @@
-"""Key-range-sharded Uruv: one store per shard, stacked on one device.
+"""Key-range-sharded Uruv: one store per shard.
 
 A port of the JAX package's ``repro.core.sharded``.  The key space is
-range-partitioned into ``n_shards`` spans; a sharded store is ONE stacked
-store whose every array carries a leading [n_shards] axis, shard ``s``
-owning the keys of span ``s``.  Here every shard lives on the mesh's one
-device, and the reference's collectives become tensor operations along
-the shard axis: ``psum`` a sum (a select: exactly one shard owns an op),
-``all_gather`` the stack of the shards' outputs, ``all_to_all`` the
-transpose of the [src, dst, cap] staging, ``axis_index`` the shard's
-index.  Each shard's pass is the port's own ``store.bulk_apply``,
-``bulk_range``, ``bulk_lookup`` or ``range_query`` on that shard's view
-(``store.shard_view``), so on the card the store kernels run once per
-shard per pass.
+range-partitioned into ``n_shards`` spans, shard ``s`` owning the keys of
+span ``s``.  A mesh (``repro_torch.launch.mesh``) places the shards in
+one of two ways:
+
+  * **stacked** (``mesh.group`` None): ONE store whose every array
+    carries a leading [n_shards] axis, every shard on the mesh's one
+    device.  The reference's collectives become tensor operations along
+    the shard axis: ``psum`` a sum (a select: exactly one shard owns an
+    op), ``all_gather`` the stack of the shards' outputs, ``all_to_all``
+    the transpose of the [src, dst, cap] staging, ``axis_index`` the
+    shard's index.  On the card the store kernels run once per shard per
+    pass.
+  * **one shard a process** (``mesh.group`` a ``torch.distributed``
+    process group of ``n_shards`` members): member ``r`` holds shard
+    ``r`` as its *block*, a store whose arrays carry a leading [1] axis,
+    as ``shard_map`` hands a device its block, and every pass is the
+    reference's SPMD program with its collectives over the group
+    (``repro_torch.distributed.collectives``).  Every member takes the
+    same global arguments and returns the same full answers.
+
+Each shard's pass is the port's own ``store.bulk_apply``, ``bulk_range``,
+``bulk_lookup`` or ``range_query`` on that shard's view
+(``store.shard_view``).
 
   apply :  ONE mixed-op pass per shard.  Op i of the global announce
            array runs at global timestamp ``base + i`` on whichever shard
@@ -51,6 +63,7 @@ from repro_torch.core import _ops as O
 from repro_torch.core import store as S
 from repro_torch.core.batch import _bump
 from repro_torch.core.ref import KEY_MAX, NOT_FOUND, OP_NOP, OP_RANGE
+from repro_torch.distributed import collectives as C
 
 I32 = torch.int32
 
@@ -68,10 +81,21 @@ class ShardedConfig:
 
 def create(cfg: ShardedConfig, mesh) -> S.UruvStore:
     """A stacked store on ``mesh.device``: every array gains a leading
-    [n_shards] axis, each shard an empty store of ``cfg.base``."""
-    n = mesh.shape[cfg.axis_name]
+    [n_shards] axis, each shard an empty store of ``cfg.base``; over a
+    group, this member's [1] block."""
+    n = 1 if mesh.group is not None else mesh.shape[cfg.axis_name]
     proto = S.create(cfg.base, mesh.device)
     return S.stack_shards([proto] * n)
+
+
+def _block(store: S.UruvStore) -> S.UruvStore:
+    """The one shard of a member's [1] block (a view)."""
+    return S.shard_view(store, 0)
+
+
+def _flag(cond, dev) -> torch.Tensor:
+    """A [1] int32 tensor, 1 where ``cond`` (a bool or a bool tensor)."""
+    return torch.as_tensor(cond, device=dev).to(I32).reshape(1)
 
 
 def _owner(cfg: ShardedConfig, keys: torch.Tensor,
@@ -84,7 +108,7 @@ def _owner(cfg: ShardedConfig, keys: torch.Tensor,
 
 
 def _mixed_core(cfg: ShardedConfig, n_shards: int, store: S.UruvStore,
-                codes, keys, values, light_path: bool = True):
+                codes, keys, values, light_path: bool = True, group=None):
     """Apply the replicated mixed announce on every shard: ops a shard does
     not own become NOPs, per-op global timestamps keep the announce-order
     linearization exact across shards."""
@@ -92,6 +116,20 @@ def _mixed_core(cfg: ShardedConfig, n_shards: int, store: S.UruvStore,
     codes, keys, values = (S._i32(x, dev) for x in (codes, keys, values))
     G = keys.shape[0]
     owner = _owner(cfg, keys, n_shards)
+    if group is not None:
+        mine = (owner == C.axis_index(group)) & (keys < KEY_MAX)
+        st = _block(store)
+        new, res, ok = S.bulk_apply(
+            st, torch.where(mine, codes, OP_NOP),
+            torch.where(mine, keys, KEY_MAX), values,
+            op_ts=st.ts + O.arange32(G, dev), next_ts=st.ts + G,
+            light_path=light_path)
+        # one psum: the results' contributions (JAX's :104) and, last,
+        # this member's rejection (ok summed as in JAX's :105)
+        total = C.psum(torch.cat([torch.where(mine, res - NOT_FOUND, 0),
+                                  _flag(not ok, dev)]), group)
+        return (S.stack_shards([new], base=store), total[:G] + NOT_FOUND,
+                not bool(total[G]))
     res_all = torch.full((G,), NOT_FOUND, dtype=I32, device=dev)
     news, ok_all = [], True
     for s, st in enumerate(S.shard_views(store)):
@@ -122,7 +160,7 @@ def make_apply(cfg: ShardedConfig, mesh, *, light_path: bool = True):
 
     def apply(store, codes, keys, values):
         return _mixed_core(cfg, n_shards, store, codes, keys, values,
-                           light_path)
+                           light_path, mesh.group)
 
     return apply
 
@@ -142,28 +180,19 @@ def make_routed_apply(cfg: ShardedConfig, mesh, *, route_factor: int = 2,
     returned store and retry through the replicated pass.
     """
     n = mesh.shape[cfg.axis_name]
+    if mesh.group is not None:
+        return _routed_over_group(cfg, mesh.group, route_factor, light_path)
 
     def routed(store, codes, keys, values):
         dev = store.device
         codes, keys, values = (S._i32(x, dev)
                                for x in (codes, keys, values))
         G = keys.shape[0]
-        if G % n:
-            raise ValueError(f"routed width {G} is not a multiple of "
-                             f"{n} shards (pad_announce)")
-        W = G // n
-        cap = max(1, -(-(W * route_factor) // n))
+        W, cap = _route_width(G, n, route_factor)
         pos = O.arange32(G, dev)
-        route = (keys < KEY_MAX) & (codes != OP_NOP)
-        owner = torch.where(route, _owner(cfg, keys, n), n).view(n, W)
-        onehot = owner[..., None] == O.arange32(n, dev)      # [src, W, dst]
-        rank = torch.cumsum(onehot.to(I32), 1, dtype=I32).gather(
-            2, owner.clamp_max(n - 1).long()[..., None])[..., 0] - 1
-        routed_ = (owner < n) & (rank < cap)
-        lost = bool(((owner < n) & (rank >= cap)).any())
+        row, col, lost = _route_slots(cfg, n, codes.view(n, W),
+                                      keys.view(n, W), cap)
         src = O.arange32(n, dev)[:, None].expand(n, W).long()
-        row = torch.where(routed_, owner, n).long()          # n: dropped
-        col = rank.clamp(0, cap - 1).long()
 
         def stage(fill, x):
             buf = torch.full((n, n + 1, cap), fill, dtype=I32, device=dev)
@@ -174,7 +203,7 @@ def make_routed_apply(cfg: ShardedConfig, mesh, *, route_factor: int = 2,
         rcodes, rkeys, rvals, rpos = (stage(f, x) for f, x in (
             (OP_NOP, codes), (KEY_MAX, keys), (0, values), (0, pos)))
         contrib = torch.full((G + 1,), NOT_FOUND, dtype=I32, device=dev)
-        news, ok_all = [], not lost
+        news, ok_all = [], not bool(lost)
         for d, st in enumerate(S.shard_views(store)):
             fkeys, fpos = rkeys[d].reshape(-1), rpos[d].reshape(-1)
             new, res, ok = S.bulk_apply(
@@ -187,6 +216,79 @@ def make_routed_apply(cfg: ShardedConfig, mesh, *, route_factor: int = 2,
             news.append(new)
             ok_all = ok_all and ok
         return S.stack_shards(news, base=store), contrib[:G], ok_all
+
+    return routed
+
+
+def _route_width(G: int, n: int, route_factor: int) -> Tuple[int, int]:
+    """A source slice's width W and an owner's budget cap of one routed
+    pass over a width-``G`` announce."""
+    if G % n:
+        raise ValueError(f"routed width {G} is not a multiple of "
+                         f"{n} shards (pad_announce)")
+    W = G // n
+    return W, max(1, -(-(W * route_factor) // n))
+
+
+def _route_slots(cfg: ShardedConfig, n: int, codes: torch.Tensor,
+                 keys: torch.Tensor, cap: int):
+    """Where each op of a source slice (``[..., W]``) goes in its
+    [n, cap] staging: its owner row (``n`` for a NOP, a pad, or an op past
+    its owner's budget) and its column (its rank among the slice's ops
+    for that owner); and whether any op was past its budget (a device
+    bool)."""
+    route = (keys < KEY_MAX) & (codes != OP_NOP)
+    owner = torch.where(route, _owner(cfg, keys, n), n)
+    onehot = owner[..., None] == O.arange32(n, keys.device)  # [..., W, dst]
+    slot = torch.cumsum(onehot.to(I32), -2, dtype=I32).gather(
+        -1, owner.clamp_max(n - 1).long()[..., None])[..., 0] - 1
+    kept = (owner < n) & (slot < cap)
+    lost = ((owner < n) & (slot >= cap)).any()
+    return (torch.where(kept, owner, n).long(),
+            slot.clamp(0, cap - 1).long(), lost)
+
+
+def _routed_over_group(cfg: ShardedConfig, group, route_factor: int,
+                       light_path: bool):
+    """The routed pass as the reference's SPMD program (JAX's
+    ``:158-202``): this member's slice of the announce is staged
+    [n, cap], exchanged by one ``all_to_all`` per array, applied, and the
+    results, the lost flag and ``ok`` are summed over the group."""
+    n, me = C.axis_size(group), C.axis_index(group)
+
+    def routed(store, codes, keys, values):
+        dev = store.device
+        codes, keys, values = (S._i32(x, dev)
+                               for x in (codes, keys, values))
+        G = keys.shape[0]
+        W, cap = _route_width(G, n, route_factor)
+        mine = slice(me * W, (me + 1) * W)
+        row, col, lost = _route_slots(cfg, n, codes[mine], keys[mine], cap)
+
+        def stage(fill, x):
+            buf = torch.full((n + 1, cap), fill, dtype=I32, device=dev)
+            buf[row, col] = x
+            return C.all_to_all(buf[:n], group)              # [src, cap]
+
+        # row s of each received buffer came from source s, positions
+        # [s W, (s+1) W) packed in order: flattened, the valid ops stay
+        # announce-ordered, as bulk_apply's op_ts contract requires
+        rcodes, rkeys, rvals, rpos = (stage(f, x) for f, x in (
+            (OP_NOP, codes[mine]), (KEY_MAX, keys[mine]),
+            (0, values[mine]), (0, me * W + O.arange32(W, dev))))
+        fkeys, fpos = rkeys.reshape(-1), rpos.reshape(-1)
+        st = _block(store)
+        new, res, ok = S.bulk_apply(
+            st, rcodes.reshape(-1), fkeys, rvals.reshape(-1),
+            op_ts=st.ts + fpos, next_ts=st.ts + G, light_path=light_path)
+        valid = fkeys < KEY_MAX
+        part = torch.zeros(G + 1, dtype=I32, device=dev)
+        part.scatter_(0, torch.where(valid, fpos, G).long(),
+                      torch.where(valid, res - NOT_FOUND, 0))
+        part[G:] = _flag(lost, dev) | int(not ok)
+        total = C.psum(part, group)
+        return (S.stack_shards([new], base=store), total[:G] + NOT_FOUND,
+                not bool(total[G]))
 
     return routed
 
@@ -212,38 +314,55 @@ def make_range_apply(cfg: ShardedConfig, mesh, *, max_results: int = 1024,
     smallest keys; the merged ``resume_k1`` paginates exactly as on one
     device.
     """
-    n = mesh.shape[cfg.axis_name]
     R = max_results
+    group = mesh.group
 
     def range_apply(store, k1, k2, snap):
         dev = store.device
         k1 = S._i32(k1, dev).reshape(-1)
         k2 = S._i32(k2, dev).reshape(-1)
         snap = S._i32(snap, dev).expand(k1.shape)
-        Q = k1.shape[0]
         outs = [S.bulk_range(st, k1, k2, snap, max_results=R,
                              scan_leaves=scan_leaves, max_rounds=max_rounds)
                 for st in S.shard_views(store)]
-        allk, allv, _, allt, allr = (torch.stack(x) for x in zip(*outs))
-        ceil = torch.where(allt, allr, KEY_MAX).amin(0)             # [Q]
-        mk = allk.transpose(0, 1).reshape(Q, n * R)
-        mv = allv.transpose(0, 1).reshape(Q, n * R)
-        keep = mk < ceil[:, None]      # drops padding AND beyond-frontier
-        mk = torch.where(keep, mk, KEY_MAX)
-        mv = torch.where(keep, mv, NOT_FOUND)
-        sk, perm = torch.sort(mk, dim=1, stable=True)
-        sv = mv.gather(1, perm)
-        total = keep.sum(1, dtype=I32)
-        count = total.clamp_max(R)
-        out_keys, out_vals = sk[:, :R], sv[:, :R]
-        overflow = total > R
-        clamped = ceil < KEY_MAX
-        last = out_keys.gather(1, (count - 1).clamp_min(0).long()[:, None])
-        resume = torch.where(overflow, last[:, 0] + 1,
-                             torch.where(clamped, ceil, k2))
-        return out_keys, out_vals, count, overflow | clamped, resume
+        if group is None:
+            allk, allv, _, allt, allr = (torch.stack(x) for x in zip(*outs))
+        else:
+            # JAX's four all_gathers (:254-257) as one, of the packed
+            # [Q, 2R + 2] block: keys, values, truncated, resume
+            keys, vals, _, trunc, resume = outs[0]
+            allp = C.all_gather(torch.cat(
+                [keys, vals, trunc.to(I32)[:, None], resume[:, None]], 1),
+                group)                                       # [n, Q, 2R+2]
+            allk, allv = allp[..., :R], allp[..., R:2 * R]
+            allt, allr = allp[..., 2 * R].bool(), allp[..., 2 * R + 1]
+        return _merge_ranges(allk, allv, allt, allr, k2, R)
 
     return range_apply
+
+
+def _merge_ranges(allk, allv, allt, allr, k2, R: int):
+    """The shards' ``bulk_range`` blocks (``[n, Q, R]`` keys and values,
+    ``[n, Q]`` truncated flags and resume points) merged by key and
+    clamped to the frontier (JAX's ``:258-276``)."""
+    n, Q = allk.shape[:2]
+    ceil = torch.where(allt, allr, KEY_MAX).amin(0)             # [Q]
+    mk = allk.transpose(0, 1).reshape(Q, n * R)
+    mv = allv.transpose(0, 1).reshape(Q, n * R)
+    keep = mk < ceil[:, None]      # drops padding AND beyond-frontier
+    mk = torch.where(keep, mk, KEY_MAX)
+    mv = torch.where(keep, mv, NOT_FOUND)
+    sk, perm = torch.sort(mk, dim=1, stable=True)
+    sv = mv.gather(1, perm)
+    total = keep.sum(1, dtype=I32)
+    count = total.clamp_max(R)
+    out_keys, out_vals = sk[:, :R], sv[:, :R]
+    overflow = total > R
+    clamped = ceil < KEY_MAX
+    last = out_keys.gather(1, (count - 1).clamp_min(0).long()[:, None])
+    resume = torch.where(overflow, last[:, 0] + 1,
+                         torch.where(clamped, ceil, k2))
+    return out_keys, out_vals, count, overflow | clamped, resume
 
 
 def pad_announce(codes, keys, values, multiple: int):
@@ -259,18 +378,23 @@ def pad_announce(codes, keys, values, multiple: int):
     return codes, keys, values
 
 
-def _oflow_bits(store: S.UruvStore) -> int:
-    return int(np.bitwise_or.reduce(store.oflow.cpu().numpy().reshape(-1)))
+def _oflow_bits(store: S.UruvStore, group=None) -> int:
+    """The OR of every shard's ``OFLOW_*`` bits (over the group too)."""
+    bits = store.oflow.reshape(-1)
+    if group is not None:
+        bits = C.bitwise_or(bits, group)
+    return int(np.bitwise_or.reduce(bits.cpu().numpy()))
 
 
 def sharded_apply_batch(store, codes, keys, values, *, apply_fn,
-                        routed_fn=None, stats=None):
+                        routed_fn=None, stats=None, group=None):
     """Host fast/slow sequencing: the routed pass first, the replicated
     pass as its fallback.  Returns ``(store, results[G])``.
 
     Raises ``RuntimeError`` if even the replicated pass rejects
     (capacity); the error carries the OR of the rejecting shards' fresh
-    ``OFLOW_*`` bits as ``.oflow_reason`` so the caller's lifecycle policy
+    ``OFLOW_*`` bits as ``.oflow_reason`` (over ``group``, the mesh's, for
+    a member's block) so the caller's lifecycle policy
     (``repro_torch.api.ShardedExecutor``) can relieve the right pool.
     CRUD codes only: RANGE announce arrays go through
     :func:`make_range_apply`.
@@ -291,38 +415,46 @@ def sharded_apply_batch(store, codes, keys, values, *, apply_fn,
         err = RuntimeError(
             "sharded announce rejected by every shard path (capacity); "
             "grow/compact or widen the shard stores")
-        err.oflow_reason = _oflow_bits(new_store) & ~_oflow_bits(store)
+        err.oflow_reason = (_oflow_bits(new_store, group)
+                            & ~_oflow_bits(store, group))
         raise err
     return new_store, res.cpu().numpy()
 
 
 def make_ops(cfg: ShardedConfig, mesh):
-    """The (update, lookup, range_q) ops over a stacked store.
+    """The (update, lookup, range_q) ops over a stacked store (or, over a
+    group, a member's block: every member gets the whole answer).
 
     ``update(store, keys, values)`` shares :func:`make_apply`'s rejection
     contract.  ``lookup(store, keys, snap)`` answers each key on its
-    owner.  ``range_q(store, k1, k2, snap, *, max_scan_leaves=64,
-    max_results=1024)`` is the paper's single-interval RANGEQUERY on every
-    shard: per-shard ``(keys[n, R], values[n, R], count[n],
-    truncated[n])`` blocks (:func:`merge_range_results` joins them).
+    owner (summed over the group, JAX's ``psum``).  ``range_q(store, k1,
+    k2, snap, *, max_scan_leaves=64, max_results=1024)`` is the paper's
+    single-interval RANGEQUERY on every shard: per-shard ``(keys[n, R],
+    values[n, R], count[n], truncated[n])`` blocks, over a group gathered
+    to every member as JAX's ``out_specs=P(ax)`` gives them
+    (:func:`merge_range_results` joins them).
     """
     n = mesh.shape[cfg.axis_name]
+    group = mesh.group
+    first = 0 if group is None else C.axis_index(group)
 
     def update(store, keys, values):
         keys = np.asarray(keys, np.int32)
         values = np.asarray(values, np.int32)
         codes = S.derive_update_codes(keys, values)
-        return _mixed_core(cfg, n, store, codes, keys, values)
+        return _mixed_core(cfg, n, store, codes, keys, values, group=group)
 
     def lookup(store, keys, snap):
         keys = S._i32(keys, store.device).reshape(-1)
         owner = _owner(cfg, keys, n)
         out = torch.full_like(keys, NOT_FOUND)
-        for s, st in enumerate(S.shard_views(store)):
+        for s, st in enumerate(S.shard_views(store), first):
             mine = owner == s
             vals = S.bulk_lookup(st, torch.where(mine & (keys < KEY_MAX),
                                                  keys, KEY_MAX), snap)
             out = torch.where(mine, vals, out)
+        if group is not None:
+            out = C.psum(out - NOT_FOUND, group) + NOT_FOUND
         return out
 
     def range_q(store, k1, k2, snap, *, max_scan_leaves: int = 64,
@@ -331,7 +463,14 @@ def make_ops(cfg: ShardedConfig, mesh):
                               max_scan_leaves=max_scan_leaves,
                               max_results=max_results)
                 for st in S.shard_views(store)]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        keys, vals, cnt, trunc = (torch.stack(x) for x in zip(*outs))
+        if group is None:
+            return keys, vals, cnt, trunc
+        R = keys.shape[1]
+        allp = C.all_gather(torch.cat([keys[0], vals[0], cnt.to(I32),
+                                       trunc.to(I32)]), group)  # [n, 2R+2]
+        return (allp[:, :R], allp[:, R:2 * R], allp[:, 2 * R],
+                allp[:, 2 * R + 1].bool())
 
     return update, lookup, range_q
 

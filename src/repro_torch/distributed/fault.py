@@ -16,9 +16,10 @@ host-level and deterministic, hence testable on the CPU:
     a pure function of (checkpoint, data stream step), so a restart
     reproduces the exact trajectory (the attention's backward kernel has
     no atomics, so this holds on the card too).
-
-``reshard`` (move a state onto a new mesh) waits for one shard per card
-(ROADMAP.md, Queue 1 item 7): the port keeps every shard on one device.
+  * reshard — the elastic move of a state onto new placements: a whole
+    leaf onto one device, or a leaf split along dim 0 over a
+    ``torch.distributed`` group (:class:`GroupPlacement`, one block a
+    member, as JAX's ``NamedSharding(mesh, P(axis))``), and back.
 """
 
 from __future__ import annotations
@@ -28,8 +29,12 @@ import os
 import signal
 import statistics
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import torch
+
+from repro_torch.core import store as S
+from repro_torch.distributed import collectives as C
 from repro_torch.optim.adamw import tree_map
 
 CRASH_POINT_ENV = "URUV_CRASH_POINT"
@@ -126,6 +131,70 @@ class StragglerMonitor:
                 mon.record(step, time.perf_counter() - self.t0)
 
         return _Timer()
+
+
+# ---------------------------------------------------------------------------
+# elastic placement
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlacement:
+    """A leaf split along dim 0 into equal blocks over ``group``: member
+    ``r`` keeps block ``r`` on ``device`` (default ``cuda``; raises
+    without it).  A stacked store's shard axis so placed leaves each
+    member its [1] block (``repro_torch.core.sharded``)."""
+
+    group: Any
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", S.resolve_device(self.device))
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """This member's block of the whole leaf ``x`` (a copy)."""
+        n, r = C.axis_size(self.group), C.axis_index(self.group)
+        if x.dim() == 0 or x.shape[0] % n:
+            raise ValueError(f"a leaf of shape {tuple(x.shape)} does not "
+                             f"split into {n} blocks along dim 0")
+        b = x.shape[0] // n
+        return x[r * b:(r + 1) * b].to(self.device, copy=True)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every member's block ``x`` (on ``x``'s
+        device, in every member)."""
+        return C.all_gather(x, self.group).flatten(0, 1)
+
+
+def _is_placement(p) -> bool:
+    return p is None or isinstance(p, (torch.device, str, GroupPlacement))
+
+
+def reshard(tree, placements, *, current=None):
+    """Elastic move of a tree onto ``placements`` (JAX's ``reshard``: each
+    whole leaf fetched, then put on its new sharding; a new mesh is fine).
+
+    ``placements`` and ``current`` are each one placement for every leaf
+    or a tree of them congruent to ``tree``.  A placement is a device
+    (the whole leaf goes there) or a :class:`GroupPlacement` (this
+    member keeps its block).  ``current`` says where the leaves are now:
+    ``None``, whole; a :class:`GroupPlacement`, this member's block,
+    gathered whole first, so ``reshard(blocks, device, current=placement)``
+    is the inverse of ``reshard(whole, placement)``.  A store
+    (``UruvStore``) is one leaf whose every array moves alike.
+    """
+    def one(x, to, now):
+        if isinstance(x, S.UruvStore):
+            return S.map_arrays(lambda a: one(a, to, now), x)
+        if isinstance(now, GroupPlacement):
+            x = now.whole(x)
+        if isinstance(to, GroupPlacement):
+            return to.block(x)
+        return x.to(to)
+
+    def spread(p):
+        return tree_map(lambda _: p, tree) if _is_placement(p) else p
+
+    return tree_map(one, tree, spread(placements), spread(current))
 
 
 # ---------------------------------------------------------------------------

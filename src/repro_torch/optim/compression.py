@@ -9,9 +9,8 @@ tricks with error feedback (EF keeps convergence), over trees of tensors
   * int8 quantization — per-leaf absmax scaling.
 
 ``compress_grads`` simulates the wire format (compress, then
-decompress).  The JAX package's ``compressed_psum``, the int8 psum of a
-``shard_map`` data-parallel loop, needs one replica per card and waits
-with the port's other collectives (ROADMAP.md, Queue 1 item 7).
+decompress); :func:`compressed_psum` is the wire-level int8 all-reduce of
+a data-parallel loop over a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.optim.adamw import tree_map
 
 
@@ -66,3 +66,16 @@ def compress_grads(cfg: CompressionConfig, grads, error):
     sent = tree_map(sent_of, grads, error)
     it = iter(residuals)                 # tree_map visits leaves in order
     return sent, tree_map(lambda _: next(it), grads)
+
+
+def compressed_psum(g: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``g`` over ``group`` with int8 values on the wire (the
+    JAX package's ``compressed_psum``): a shared scale (the group's
+    largest ``max|g| / 127``), each member's ``g`` rounded to int8 steps
+    of it, an int32 sum, and the sum times the scale over the group's
+    size."""
+    scale = g.abs().max() / 127.0 + 1e-12
+    scale = C.pmax(scale.reshape(1), group)[0]      # shared scale
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
+    total = C.psum(q, group)
+    return total.float() * scale / float(C.axis_size(group))

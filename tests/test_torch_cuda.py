@@ -635,6 +635,35 @@ def test_sharded_client_on_card_equals_cpu(card):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("backend,n", [("gloo", 2), ("nccl", 1)])
+def test_group_routed_plan_on_card(card, tmp_path, backend, n):
+    """The sharded store one shard a process on the card: 2 gloo ranks
+    sharing ``cuda:0``, and a 1-rank NCCL group, each through one routed
+    plan and a lookup, equal to the stacked store of as many shards on
+    the card (answers, clock, rank r's block = shard r), the store
+    kernels launched in the ranks."""
+    import _dist_ranks as R
+    from repro_torch.core import sharded as TSH
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with R.Ranks("card", tmp_path, n=n, backend=backend) as ranks:
+        cfg = TSH.ShardedConfig(base=T.UruvConfig(**R.CFG), key_hi=R.KEY_HI)
+        mesh = make_host_mesh(n, device=card)
+        trace, store = R.routed_script(TSH, cfg, mesh, TSH.create(cfg, mesh))
+        outs = ranks.results()
+    stacked = TS.to_numpy(store)
+    assert trace[1]
+    for r, o in enumerate(outs):
+        assert len(o["trace"]) == len(trace)
+        for a, b in zip(o["trace"], trace):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        for name, a in o["block"].items():
+            np.testing.assert_array_equal(a, stacked[name][r:r + 1],
+                                          err_msg=name)
+        assert o["launches"].get("index_descend", 0) > 0
+        assert o["launches"].get("leaf_slots_read", 0) > 0
+
+
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -7)}
 
 

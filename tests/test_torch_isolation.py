@@ -48,6 +48,9 @@ def test_api_imports_with_jax_blocked():
             "import repro_torch.serve.engine, repro_torch.models.registry\n"
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.distributed.ctx, repro_torch.kernels._meta\n"
+            "import repro_torch.distributed.collectives\n"
+            "import repro_torch.distributed.fault\n"
+            "import repro_torch.optim.compression\n"
             "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
             "from repro_torch.config import get_arch\n"
             "rec = repro_torch.launch.dryrun.run_cell('llama3_2_1b', "
