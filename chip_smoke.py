@@ -4220,7 +4220,10 @@ def dryrun_phase() -> None:
     """Every (arch, shape) of the JAX package's table at full width, the
     port's real step on ``meta`` tensors (``launch.dryrun.sweep``: one
     ``spawn`` worker a core, each pair traced once and read on both
-    production meshes); nothing may reach the card."""
+    production meshes, the spec pass of ``distributed.spmd`` counting each
+    mesh's collectives on the same trace); nothing may reach the card.
+    Every OK train cell moves all-gather and all-reduce bytes on both
+    meshes."""
     import os
 
     from repro_torch.config import SHAPES, get_arch, shape_applicable
@@ -4245,9 +4248,11 @@ def dryrun_phase() -> None:
         want = shape_applicable(get_arch(r["arch"]), SHAPES[r["shape"]])[1]
         check(r["reason"] == want and want,
               f"dryrun: {r['arch']} {r['shape']} skipped for {r['reason']!r}")
-    low = []
+    low, silent, bounds = [], [], {}
     for r in ok:
         row = roofline.analyze_cell(r)
+        coll = r["collective_bytes"]
+        bounds[row["bottleneck"]] = bounds.get(row["bottleneck"], 0) + 1
         ma = r["memory_analysis"]
         per_chip = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
         counted, mf = r["global"]["flops"], r["model_flops"]
@@ -4256,11 +4261,19 @@ def dryrun_phase() -> None:
             fits=r["fits"], counted_flops=f"{counted:.4e}",
             model_flops=f"{mf:.4e}", counted_over_model=f"{counted / mf:.3f}",
             counted_bytes=f"{r['global']['bytes accessed']:.4e}",
+            coll_bytes=json.dumps({k: float(f"{v:.4e}") for k, v in
+                                   sorted(coll.items())}).replace(" ", ""),
+            t_collective_s=f"{row['t_collective_s']:.4e}",
             bottleneck=row["bottleneck"], trace_s=r["lower_s"])
         if counted < MODEL_FLOPS_GATE * mf:
             low.append((r["arch"], r["shape"], counted / mf))
+        if SHAPES[r["shape"]].kind == "train" and not (
+                coll.get("all-gather", 0) > 0 and coll.get("all-reduce", 0) > 0):
+            silent.append((r["arch"], r["shape"], r["mesh"], coll))
     check(not low, f"dryrun: counted FLOPs below {MODEL_FLOPS_GATE} x model "
                    f"FLOPs: {low}")
+    check(not silent, f"dryrun: train cells without all-gather and "
+                      f"all-reduce bytes: {silent}")
     check(after == before and not touched,
           f"dryrun: the card's memory went {before} -> {after} bytes, a "
           f"worker initialised CUDA: {touched}")
@@ -4270,6 +4283,7 @@ def dryrun_phase() -> None:
         seconds=f"{secs:.1f}", memory_allocated_before=before,
         memory_allocated_after=after, workers_touched_cuda=touched,
         fits=sum(r["fits"] for r in ok),
+        bottlenecks=json.dumps(bounds).replace(" ", ""),
         slowest=json.dumps([[r["arch"], r["shape"], r["lower_s"]]
                             for r in slow]).replace(" ", ""),
         card=repr(roofline.card()))

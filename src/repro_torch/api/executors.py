@@ -352,8 +352,8 @@ class ShardedExecutor:
                 # reindex is reclamation, not growth: allowed under every
                 # policy; pool doubling stays behind auto_grow
                 if not (index_bit or (self.policy.auto_grow and grow_bits)):
-                    raise CapacityError(str(e), store=store,
-                                        oflow=reason) from e
+                    raise CapacityError(str(e), store=store, oflow=reason,
+                                        gather=self.gather) from e
                 self.stats["slow_path_rounds"] += 1
                 relief = index_bit | (
                     grow_bits if self.policy.auto_grow else 0)
@@ -361,7 +361,7 @@ class ShardedExecutor:
                     store, relief, len(codes), self.policy, stats=self.stats,
                     gather=self.gather)
         raise CapacityError("sharded capacity retries failed to converge",
-                            store=store)
+                            store=store, gather=self.gather)
 
     def apply(self, store, batch: OpBatch, *, light_path: bool = True,
               range_opts: RangeOptions = RangeOptions()):

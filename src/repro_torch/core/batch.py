@@ -34,10 +34,13 @@ class CapacityError(RuntimeError):
     ``leaf_cap``).  Carries ``oflow`` (the ``OFLOW_*`` bits of the last
     rejection), ``occupancy`` (``n_alloc / max_leaves``),
     ``frozen_fraction`` (allocated-but-dead share of the leaf pool) and
-    the version pool fill ``n_vers`` / ``max_versions``."""
+    the version pool fill ``n_vers`` / ``max_versions``.  Over a process
+    group (``gather``, as ``lifecycle.across`` takes it; every member
+    raises together) these are the whole store's, as a stacked store's
+    are."""
 
     def __init__(self, message: str, *, store: Optional[S.UruvStore] = None,
-                 oflow: int = 0):
+                 oflow: int = 0, gather=None):
         self.oflow = int(oflow)
         self.occupancy = 0.0
         self.frozen_fraction = 0.0
@@ -45,12 +48,19 @@ class CapacityError(RuntimeError):
         self.max_versions = 0
         if store is not None:
             # a stacked (sharded) store sums its shards' leaf pools and
-            # reports its fullest version pool
-            n_alloc = int(store.n_alloc.sum())
+            # reports its fullest version pool; a member of a group reads
+            # its partial counters across the group
+            rows = LC.across(torch.stack([
+                store.n_alloc.sum(), store.n_leaves.sum(),
+                store.n_vers.max().long(),
+                torch.tensor(store.ts.numel(), device=store.ts.device)]),
+                gather)
+            n_alloc, live, n_shards = (int(x) for x in
+                                       rows[:, [0, 1, 3]].sum(0).tolist())
             self.occupancy = n_alloc / max(
-                int(store.cfg.max_leaves) * store.ts.numel(), 1)
-            self.frozen_fraction = LC.dead_fraction(store)
-            self.n_vers = int(store.n_vers.max())
+                int(store.cfg.max_leaves) * n_shards, 1)
+            self.frozen_fraction = (n_alloc - live) / max(n_alloc, 1)
+            self.n_vers = int(rows[:, 2].max())
             self.max_versions = int(store.cfg.max_versions)
             message = (
                 f"{message} [oflow={self.oflow:#x} "

@@ -7,7 +7,8 @@ run (``repro_torch.launch.dryrun``) installs the context with
 ``use_mesh``; inside it ``shard_act`` still returns ``x`` itself (the
 port keeps a tensor's shards on one device, so there is no constraint to
 place) and records ``(kind, shape, guarded spec, local shape)`` for the
-dry run's report.
+dry run's report; the dry run's spec pass (``distributed.spmd``) listens
+there for the constraint.
 
 Kinds (axes refer to the production mesh, ``launch.mesh``):
   residual  [B, S, D]      B -> (pod, data);  S -> model if sequence_parallel
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from repro_torch.distributed.sharding import Spec, local_shape
 
@@ -43,6 +44,9 @@ class ShardCtx:
         self.model_axis: Optional[str] = "model" if "model" in names else None
         # (kind, shape, guarded spec, local shape) of every shard_act call
         self.records: List[tuple] = []
+        # called as listener(x, kind) at every shard_act (the dry run's
+        # spec pass, distributed.spmd)
+        self.listener: Optional[Callable] = None
 
     def spec(self, kind: str, ndim: int) -> Optional[Spec]:
         ba = self.batch_axes
@@ -114,7 +118,8 @@ def _guard(spec: Spec, shape, mesh) -> Spec:
 
 def shard_act(x, kind: str):
     """``x`` itself; under ``use_mesh`` the call is also recorded with
-    the spec the JAX package would constrain ``x`` to."""
+    the spec the JAX package would constrain ``x`` to, and told to the
+    context's ``listener``."""
     ctx = _CTX.get()
     if ctx is None:
         return x
@@ -125,4 +130,6 @@ def shard_act(x, kind: str):
     spec = _guard(spec, shape, ctx.mesh)
     ctx.records.append((kind, shape, spec,
                         local_shape(shape, spec, ctx.mesh)))
+    if ctx.listener is not None:
+        ctx.listener(x, kind)
     return x

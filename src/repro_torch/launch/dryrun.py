@@ -27,8 +27,12 @@ of the step:
 Each (arch, shape) is traced once, under the single-pod mesh; both
 meshes' records come from that trace: the mesh changes only the specs
 (``distributed.sharding``, ``distributed.ctx``) and the divisor.  The
-port has no SPMD partitioner, so a record's per-chip figures split the
-global ones evenly over the chips, and collectives are not counted.
+port has no SPMD partitioner, so a record's per-chip FLOPs and bytes
+split the global ones evenly over the chips.  Its collectives come from
+the spec pass of ``distributed.spmd``, which rides the same trace with a
+spec for each mesh at once: ``collective_bytes`` (per-chip result bytes
+times the wire factor, by type) and ``collective_counts`` count every
+executed collective, loops and the remat recomputation included.
 
 Meta ops are slow in PyTorch (many have Python meta kernels); a step
 repeats the same op on the same shapes many times (the sLSTM's time
@@ -57,12 +61,17 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed.spmd import ATTR as SPEC_TAG
+
 RESULTS_DIR = (Path(__file__).resolve().parents[3] / "experiments"
                / "dryrun_torch")
 MESHES = ("single", "multi")
 HBM_CAPACITY = 80e9   # bytes: the "80GB" of one NVIDIA H100 80GB HBM3
-NOTE = ("per-chip figures split the global step evenly over n_chips (the "
-        "port has no SPMD partitioner); collectives are not counted")
+NOTE = ("per-chip flops and bytes split the global step evenly over n_chips "
+        "(the port has no SPMD partitioner); collective_bytes (per-chip "
+        "result bytes x wire factor) and collective_counts are the spec "
+        "pass's (distributed.spmd) executed collectives on this mesh, by "
+        "type, from the one meta trace of the (arch, shape)")
 
 _aten = torch.ops.aten
 _EMPTY = {_aten.empty.memory_format, _aten.empty_strided.default,
@@ -78,15 +87,20 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _sig(x):
-    """Hashable metadata of an op argument; raises TypeError for one the
-    memo does not know (the op then runs unmemoized)."""
+def _sig(x, tags: bool = False):
+    """Hashable metadata of an op argument (with ``tags``, a tensor's spec
+    tag too); raises TypeError for one the memo does not know (the op then
+    runs unmemoized)."""
     if isinstance(x, torch.Tensor):
+        if tags:
+            return (x.shape, x.stride(), x.dtype, x.is_meta,
+                    getattr(x, SPEC_TAG, None))
         return (x.shape, x.stride(), x.dtype, x.is_meta)
     if isinstance(x, (list, tuple)):
-        return tuple(_sig(y) for y in x)
+        return tuple(_sig(y, tags) for y in x)
     if isinstance(x, dict):
-        return tuple(sorted((k, _sig(v)) for k, v in x.items()))
+        return tuple(sorted((k, _sig(v, tags)) for k, v in x.items())) \
+            if x else ()
     if x is None or isinstance(x, (bool, int, float, str, torch.dtype,
                                    torch.device, torch.memory_format,
                                    torch.layout)):
@@ -113,12 +127,16 @@ def _tensors(x, out: list) -> list:
 class StepCounter(TorchDispatchMode):
     """FLOPs, bytes read and written, and peak live bytes of a step's aten
     ops (module docstring).  ``keep`` holds tensors that exist before the
-    step (its arguments): their storages are never counted as live."""
+    step (its arguments): their storages are never counted as live.
+    ``spmd`` (a ``distributed.spmd.SpecPass``) is given every op to tag
+    its outputs' specs; its effect joins a memoized op's record, keyed by
+    the inputs' specs too (a view's effect has a memo of its own)."""
 
     VIEW, MUTABLE, FUNCTIONAL = range(3)
 
-    def __init__(self, keep=()):
+    def __init__(self, keep=(), spmd=None):
         super().__init__()
+        self.spmd = spmd
         self.flops = 0
         self.bytes = 0
         self.ops = 0
@@ -129,6 +147,7 @@ class StepCounter(TorchDispatchMode):
         self._known = {t.untyped_storage()._cdata: None for t in keep}
         self._kinds: Dict = {}
         self._memo: Dict = {}
+        self._view_memo: Dict = {}
 
     def _track(self, outs) -> None:
         for t in outs:
@@ -172,22 +191,29 @@ class StepCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         self.ops += 1
         kind = self._kind(func)
+        spmd = self.spmd
+        tags = spmd is not None
         if kind == self.VIEW:              # moves nothing, makes nothing
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            if tags:
+                self._view_specs(func, args, kwargs, out)
+            return out
         key = None
         if kind == self.FUNCTIONAL:
             try:
-                key = (func, _sig(args), _sig(kwargs))
+                key = (func, _sig(args, tags), _sig(kwargs, tags))
             except TypeError:
                 key = None
             hit = self._memo.get(key) if key is not None else None
             if hit is not None:
-                spec, single, moved, flops = hit
+                spec, single, moved, flops, effect = hit
                 outs = [torch.empty_strided(sh, st, dtype=dt, device="meta")
                         for sh, st, dt in spec]
                 self.bytes += moved
                 self.flops += flops
                 self._track(outs)
+                if effect is not None:
+                    spmd.apply(outs, effect, (args, kwargs))
                 return outs[0] if single else tuple(outs)
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs), [])
@@ -200,6 +226,11 @@ class StepCounter(TorchDispatchMode):
             moved, flops = self._cost(func, args, kwargs, ins, outs, out)
         self.bytes += moved
         self.flops += flops
+        effect = None
+        if tags:
+            effect = spmd.rule(func, args, kwargs, ins, outs)
+            if effect is not None:
+                spmd.apply(outs, effect, (args, kwargs))
         if (key is not None and not aliased and outs
                 and (isinstance(out, torch.Tensor)
                      or (type(out) is tuple and len(out) == len(outs)))
@@ -207,21 +238,51 @@ class StepCounter(TorchDispatchMode):
                         for o in outs)):
             spec = [(tuple(o.shape), o.stride(), o.dtype) for o in outs]
             self._memo[key] = (spec, isinstance(out, torch.Tensor), moved,
-                               flops)
+                               flops, effect)
         self._track(outs)
         return out
+
+    def _view_specs(self, func, args, kwargs, out) -> None:
+        x, rest = args[0], args[1:]
+        key = None
+        if isinstance(x, torch.Tensor) and not kwargs and not any(
+                isinstance(a, torch.Tensor) for a in rest):
+            # a view's specs depend on its input's shape, dtype and tag
+            # and on its other (int) arguments only
+            tag = getattr(x, SPEC_TAG, None)
+            if tag is None:
+                return                     # a replicated view: no tag
+            key = (func, x.shape, x.dtype, tag,
+                   *[tuple(a) if type(a) is list else a for a in rest])
+        else:
+            try:
+                key = (func, _sig(args, True), _sig(kwargs, True))
+            except TypeError:
+                pass
+        effect = self._view_memo.get(key, False) if key else False
+        outs = [out] if isinstance(out, torch.Tensor) else _tensors(out, [])
+        if effect is False:
+            effect = self.spmd.rule(func, args, kwargs,
+                                    _tensors((args, kwargs), []), outs)
+            if key is not None:
+                self._view_memo[key] = effect
+        if effect is not None:
+            self.spmd.apply(outs, effect, (args, kwargs))
 
 
 def _leaves(tree) -> List[torch.Tensor]:
     return [t for t, _ in _paired(tree, tree)]
 
 
-def trace_step(cfg, shape, mesh, *, long_context: bool) -> Dict:
+def trace_step(cfg, shape, mesh, *, long_context: bool,
+               meshes: Optional[Dict] = None) -> Dict:
     """The port's real step of ``shape.kind`` on meta tensors, under
     ``use_mesh(mesh)`` and a :class:`StepCounter`: its arguments and
     outputs (meta trees), the counts, the activation records and the
-    trace's seconds."""
+    trace's seconds.  With ``meshes`` (name -> mesh) a spec pass rides
+    the trace (``spmd``: its collectives on each of them)."""
     from repro_torch.distributed.ctx import use_mesh
+    from repro_torch.distributed.spmd import SpecPass
     from repro_torch.models.registry import input_specs, param_shapes
     from repro_torch.optim import adamw
     from repro_torch.train import steps
@@ -241,14 +302,25 @@ def trace_step(cfg, shape, mesh, *, long_context: bool) -> Dict:
     else:
         args = (params, batch)
         fn = steps.make_serve_step(cfg)
-    counter = StepCounter(keep=_leaves(args))
-    with use_mesh(mesh, sequence_parallel=cfg.sequence_parallel
-                  and not long_context, long_context=long_context) as ctx:
+    spmd = None
+    if meshes:
+        spmd = SpecPass(meshes)
+        spmd.tag(args, [arg_specs(cfg, shape, args, m)
+                        for m in meshes.values()])
+    counter = StepCounter(keep=_leaves(args), spmd=spmd)
+    sp = cfg.sequence_parallel and not long_context
+    with use_mesh(mesh, sequence_parallel=sp,
+                  long_context=long_context) as ctx:
+        if spmd is not None:
+            spmd.listen(ctx, sequence_parallel=sp, long_context=long_context)
         with counter:
             out = fn(*args)
+    if spmd is not None:
+        spmd.finish(out)
     return dict(args=args, out=out, flops=counter.flops,
                 bytes=counter.bytes, peak=counter.peak, ops=counter.ops,
-                records=ctx.records, lower_s=time.perf_counter() - t0)
+                records=ctx.records, spmd=spmd,
+                lower_s=time.perf_counter() - t0)
 
 
 def _paired(tree, specs):
@@ -278,36 +350,52 @@ def _spec_bytes(tree, specs, mesh) -> int:
     return total
 
 
-def arg_out_specs(cfg, shape, trace, mesh, policy) -> Tuple:
-    """(argument specs, output specs) of a traced step on ``mesh``: the
-    parameters and optimizer moments by ``param_shardings``, the inputs by
-    ``batch_specs``; the new state keeps its input's specs, every other
-    output is laid out by ``batch_specs`` (batch-major; a cache as a
-    cache), a scalar replicated."""
+def _policy(cfg):
     from repro_torch.distributed import sharding as shd
-    from repro_torch.train import steps
-    from repro_torch.optim import adamw
 
-    long_ctx = shape.name == "long_500k"
-    first, batch = trace["args"]
-    bspec = shd.batch_specs(batch, mesh, long_context=long_ctx)
+    return shd.ShardingPolicy(fsdp=True,
+                              sequence_parallel=cfg.sequence_parallel)
+
+
+def arg_specs(cfg, shape, args, mesh) -> Tuple:
+    """Specs of a step's arguments on ``mesh``: the parameters and
+    optimizer moments by ``param_shardings``, the inputs by
+    ``batch_specs``, a scalar replicated."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    first, batch = args
+    bspec = shd.batch_specs(batch, mesh,
+                            long_context=shape.name == "long_500k")
     if shape.kind == "train":
-        pspec = shd.param_shardings(first.params, mesh, policy)
-        sspec = steps.TrainState(params=pspec,
+        pspec = shd.param_shardings(first.params, mesh, _policy(cfg))
+        return (steps.TrainState(params=pspec,
                                  opt=adamw.OptState(m=pspec, v=pspec,
                                                     step=()),
-                                 step=())
+                                 step=()), bspec)
+    return shd.param_shardings(first, mesh, _policy(cfg)), bspec
+
+
+def arg_out_specs(cfg, shape, trace, mesh) -> Tuple:
+    """(argument specs, output specs) of a traced step on ``mesh``
+    (:func:`arg_specs`); the new state keeps its input's specs, every
+    other output is laid out by ``batch_specs`` (batch-major; a cache as
+    a cache), a scalar replicated."""
+    from repro_torch.distributed import sharding as shd
+
+    long_ctx = shape.name == "long_500k"
+    aspec = arg_specs(cfg, shape, trace["args"], mesh)
+    if shape.kind == "train":
         new_state, metrics = trace["out"]
-        ospec = (sspec, shd.batch_specs(metrics, mesh))
-        return (sspec, bspec), ospec
-    pspec = shd.param_shardings(first, mesh, policy)
+        return aspec, (aspec[0], shd.batch_specs(metrics, mesh))
     out = trace["out"]
     ospec = shd.batch_specs(out if isinstance(out, dict)
                             else {"logits": out}, mesh,
                             long_context=long_ctx)
     if not isinstance(out, dict):
         ospec = ospec["logits"]
-    return (pspec, bspec), ospec
+    return aspec, ospec
 
 
 def activations(records, mesh, *, sequence_parallel: bool,
@@ -337,17 +425,16 @@ def activations(records, mesh, *, sequence_parallel: bool,
 
 def _record(cfg, shape, trace, arch_id: str, mesh_kind: str,
             model_flops: float) -> Dict:
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_production_mesh
 
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    policy = shd.ShardingPolicy(fsdp=True,
-                                sequence_parallel=cfg.sequence_parallel)
     long_ctx = shape.name == "long_500k"
     n_chips = 1
     for v in mesh.shape.values():
         n_chips *= v
-    aspec, ospec = arg_out_specs(cfg, shape, trace, mesh, policy)
+    aspec, ospec = arg_out_specs(cfg, shape, trace, mesh)
+    spmd = trace.get("spmd")
+    coll = spmd is not None and mesh_kind in spmd.bytes
     arg_b = _spec_bytes(trace["args"], aspec, mesh)
     out_b = _spec_bytes(trace["out"], ospec, mesh)
     temp_b = trace["peak"] // n_chips
@@ -375,8 +462,9 @@ def _record(cfg, shape, trace, arch_id: str, mesh_kind: str,
         "model_flops": model_flops,
         "fits": arg_b + temp_b <= HBM_CAPACITY,
         "hbm_capacity_bytes": HBM_CAPACITY,
-        "collective_bytes": {},
-        "collective_counts": {},
+        "collective_bytes": dict(spmd.bytes[mesh_kind]) if coll else {},
+        "collective_counts": dict(spmd.counts[mesh_kind]) if coll else {},
+        "collective_unruled": dict(spmd.unruled) if coll else {},
         "activations": activations(
             trace["records"], mesh,
             sequence_parallel=cfg.sequence_parallel and not long_ctx,
@@ -393,7 +481,9 @@ def cell_records(cfg, shape, arch_id: str,
     from repro_torch.launch.roofline import model_flops
 
     trace = trace_step(cfg, shape, make_production_mesh(),
-                       long_context=shape.name == "long_500k")
+                       long_context=shape.name == "long_500k",
+                       meshes={m: make_production_mesh(
+                           multi_pod=(m == "multi")) for m in meshes})
     mf = model_flops(cfg, shape)
     return {m: _record(cfg, shape, trace, arch_id, m, mf) for m in meshes}
 

@@ -7,14 +7,15 @@ block by a branch factor).  PyTorch has no HLO: the port's dry run
 (``launch.dryrun``) executes the step on ``meta`` tensors, so its loops
 run their real trip counts, zamba's Python ``if`` takes its real branch
 and the shared block is counted exactly where it runs.  Its record's
-``cost_analysis`` (FLOPs and bytes a chip) is read here as it is.
+``cost_analysis`` (FLOPs and bytes a chip) and ``collective_bytes`` (the
+spec pass's executed collectives, ``distributed.spmd``) are read here as
+they are.
 
 Terms (seconds/step/chip), against one NVIDIA H100 80GB HBM3 (SXM5,
 NVIDIA's data sheet, dense rates):
   compute    = flops / 989e12        (bf16 tensor-core peak)
   memory     = bytes / 3.35e12       (HBM3 bandwidth)
-  collective = wire bytes / 450e9    (NVLink 4, 18 links, one direction);
-               0 until the dry run counts collectives
+  collective = wire bytes / 450e9    (NVLink 4, 18 links, one direction)
 
 ``model_params`` / ``model_flops`` are the JAX package's yardstick of
 useful work (6ND train, 2ND prefill, 2N decode, plus attention), over

@@ -154,6 +154,26 @@ def core_script(SH, cfg, mesh, store, arr=lambda x: x):
     return trace, store
 
 
+def capacity_script(db, api, seed: int = 5) -> list:
+    """Plans of 16 inserts, three quarters of their keys on shard 0, into
+    a fixed-footprint client until it raises ``CapacityError``: the plan
+    that raised and the error's ``oflow``, ``occupancy``,
+    ``frozen_fraction``, ``n_vers`` and ``max_versions``."""
+    rng = np.random.default_rng(seed)
+    for p in range(64):
+        keys = np.where(rng.random(16) < 0.75,
+                        rng.integers(0, KEY_HI // N, 16),
+                        rng.integers(0, KEY_HI, 16)).astype(np.int32)
+        vals = rng.integers(1, 10_000, 16).astype(np.int32)
+        try:
+            db.apply(api.OpBatch(np.full(16, OP_INSERT, np.int32), keys,
+                                 vals))
+        except api.CapacityError as e:
+            return [p, e.oflow, e.occupancy, e.frozen_fraction, e.n_vers,
+                    e.max_versions]
+    return [None]
+
+
 def routed_script(SH, cfg, mesh, store):
     """One routed plan of 16 ops on an empty store, then a lookup of its
     keys: ``(trace, store)``."""
@@ -195,6 +215,18 @@ def _client(rank, group, tmp):
                         policy=T.LifecyclePolicy(**POLICY))
     trace = client_script(db, T)
     return dict(trace=trace, block=TS.to_numpy(db.store))
+
+
+def _capacity(rank, group, tmp):
+    import repro_torch.api as T
+    from repro_torch.core import store as TS
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = T.ShardedConfig(base=T.UruvConfig(**CFG), key_hi=KEY_HI)
+    db = T.Uruv.sharded(cfg, make_host_mesh(N, device="cpu", group=group),
+                        policy=T.FIXED_FOOTPRINT)
+    error = capacity_script(db, T)
+    return dict(error=error, block=TS.to_numpy(db.store))
 
 
 def _core(rank, group, tmp):
@@ -276,7 +308,7 @@ def _card(rank, group, tmp):
 
 
 SCENARIOS = {"client": _client, "core": _core, "elastic": _elastic,
-             "card": _card}
+             "card": _card, "capacity": _capacity}
 
 
 def _rank_main(name: str, rank: int, n: int, tmp: str,

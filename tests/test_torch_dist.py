@@ -110,6 +110,27 @@ def test_group_client_matches_jax_and_stacked(tmp_path):
     assert ttrace[-1] > 4                           # the pools grew
 
 
+def test_group_capacity_error_reports_the_whole_store(tmp_path):
+    """A fixed-footprint group client driven to capacity: every rank's
+    ``CapacityError`` carries the stacked client's ``oflow``,
+    ``occupancy``, ``frozen_fraction`` and ``n_vers`` (read across the
+    group), not its own shard's; its block is shard ``rank`` of the
+    stacked store's when it raised."""
+    with R.Ranks("capacity", tmp_path) as ranks:
+        _, tcfg = _configs()
+        tdb = T.Uruv.sharded(tcfg, make_host_mesh(N, device="cpu"),
+                             policy=T.FIXED_FOOTPRINT)
+        want = R.capacity_script(tdb, T)
+        outs = ranks.results()
+    assert want[0] is not None, "the stacked client never filled"
+    assert want[1] != 0 and 0 < want[2] <= 1 and want[4] > 0, want
+    stacked = TS.to_numpy(tdb.store)
+    for r, o in enumerate(outs):
+        assert o["error"] == want, (r, o["error"], want)
+        assert_same_arrays(o["block"], _shard(stacked, r), f"rank {r}")
+        assert not {"jax", "jaxlib", "repro"} & set(o["modules"]), r
+
+
 def test_group_core_passes_match_jax_and_stacked(tmp_path):
     """``make_apply``, ``make_routed_apply`` (its forced fallback too),
     ``sharded_apply_batch``, ``make_range_apply`` truncated at the frontier

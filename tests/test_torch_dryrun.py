@@ -7,8 +7,10 @@ and on both production meshes: status OK, per-chip argument bytes equal
 to those JAX's own specs give the same tensors, counted FLOPs at least
 0.99 x ``model_flops``.  The attention wrappers' shape-only operators on
 meta count the kernels' work (causal, windowed, decode) and raise the
-kernels' errors; ``analyze_cell`` names a bottleneck.  Full-width traces
-run in ``chip_smoke.py`` (phases ``dryrun`` and ``roofline``).
+kernels' errors; ``analyze_cell`` names a bottleneck and, from the
+spec pass's collectives, a nonzero collective term on every train cell.
+Full-width traces run in ``chip_smoke.py`` (phases ``dryrun`` and
+``roofline``).
 """
 
 import jax
@@ -116,11 +118,17 @@ def test_run_cell_reduced_both_meshes(arch):
             assert rec["global"]["flops"] >= 0.99 * mf, (kind, m)
             assert rec["cost_analysis"]["flops"] == \
                 rec["global"]["flops"] / rec["n_chips"]
-            assert rec["collective_bytes"] == {} and rec["fits"]
+            coll = rec["collective_bytes"]
+            assert rec["fits"] and rec["collective_unruled"] == {}
+            assert set(coll) == set(rec["collective_counts"])
+            if kind == "train":
+                assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
             assert "residual" in rec["activations"] or kind == "decode"
             row = roofline.analyze_cell(rec, tcfg, shape)
-            assert row["bottleneck"] in ("compute", "memory")
-            assert row["t_collective_s"] == 0.0
+            assert row["bottleneck"] in ("compute", "memory", "collective")
+            assert row["t_collective_s"] == pytest.approx(
+                sum(coll.values()) / roofline.NVLINK_BW)
+            assert row["t_collective_s"] > 0 or kind != "train"
             assert 0 < row["useful_ratio"] <= 1.01
 
 
