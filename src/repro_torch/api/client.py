@@ -32,6 +32,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import lifecycle as _lifecycle
 from repro_torch.core import store as _store
 from repro_torch.core.ref import KEY_MAX, OP_RANGE
@@ -172,10 +173,12 @@ class Uruv:
         same)."""
         s = dict(self.executor.stats)
         idx = self._store.index
-        s["index_delta_passes"], s["index_propagations"] = _lifecycle.across(
+        parts = _lifecycle.across(
             torch.stack([idx.stat_delta_passes.sum(),
                          idx.stat_propagations.sum()]),
-            self.executor.gather).sum(0).tolist()
+            self.executor.gather).sum(0)
+        with tracing.host_read("api.stats"):
+            s["index_delta_passes"], s["index_propagations"] = parts.tolist()
         return s
 
     @property
@@ -208,13 +211,23 @@ class Uruv:
         the plan to the next power-of-two width (results keep the
         caller's width; the clock advances by the padded width).
         """
-        base = self.ts
-        n = len(batch)
-        if pad_to_pow2 and n:
-            batch = batch.pad_to(pow2_width(n))
-        self._store, values, range_items = self.executor.apply(
-            self._store, batch, light_path=light_path, range_opts=range_opts)
-        return make_result(values[:n], batch.codes[:n], base, range_items)
+        # a replayed PendingPlan batch keeps its plan id; a batch may also
+        # be any object with codes / keys / values
+        plan = getattr(batch, "plan_id", 0) or tracing.new_plan()
+        with tracing.span("api.apply", plan):
+            base = self.ts
+            n = len(batch)
+            if pad_to_pow2 and n:
+                batch = batch.pad_to(pow2_width(n))
+            self._store, values, range_items = self.executor.apply(
+                self._store, batch, light_path=light_path,
+                range_opts=range_opts)
+            res = make_result(values[:n], batch.codes[:n], base,
+                              range_items)
+            if range_items:
+                with tracing.span("pages"):
+                    del range_items    # the pages' pair tuples, freed here
+            return res
 
     # ------------------------------------------------- pipelined (deferred)
     def apply_nowait(self, batch: OpBatch, *, pad_to_pow2: bool = False,
@@ -239,9 +252,11 @@ class Uruv:
                        np.asarray(batch.values))
         if pad_to_pow2:
             host = host.pad_to(pow2_width(n))
-        store_before = self._store
-        self._store, values, ok = self.executor.apply_nowait(
-            self._store, host, donate_store=donate_store)
+        host.plan_id = tracing.new_plan()
+        with tracing.span("api.apply_nowait", host.plan_id):
+            store_before = self._store
+            self._store, values, ok = self.executor.apply_nowait(
+                self._store, host, donate_store=donate_store)
         return PendingPlan(
             batch=host, n_user=n,
             store_before=None if donate_store else store_before,
@@ -254,10 +269,15 @@ class Uruv:
         pre-plan store and returns ``None`` — the caller replays
         ``pending.batch`` (and every later unconfirmed plan) through
         :meth:`apply`, which re-derives the same announce timestamps."""
+        with tracing.span("api.confirm", pending.plan_id):
+            return self._confirm(pending)
+
+    def _confirm(self, pending: PendingPlan) -> Optional[Result]:
         if not pending.ok:
             self._store = pending.rollback_store()
             return None
-        base = int(pending.store_after.ts) - len(pending.batch)
+        with tracing.host_read("api.clock"):
+            base = int(pending.store_after.ts) - len(pending.batch)
         dur = self.durability
         if dur is not None:
             # log-on-confirm (the pipelined half of confirm-after-fsync):
@@ -266,7 +286,8 @@ class Uruv:
             # apply(), so the WAL carries exactly one record per base_ts
             dur.log_plan(base, pending.batch.codes, pending.batch.keys,
                          pending.batch.values)
-        values = pending.values.cpu().numpy()[:pending.n_user]
+        with tracing.host_read("api.confirm"):
+            values = pending.values.cpu().numpy()[:pending.n_user]
         return make_result(values, pending.batch.codes[:pending.n_user],
                            base, ())
 

@@ -44,6 +44,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import batch as _batch
 from repro_torch.core import lifecycle as _lifecycle
 from repro_torch.core import sharded as _sharded
@@ -102,7 +103,8 @@ class LocalExecutor:
         return _store.create(self.config, self.device)
 
     def ts(self, store) -> int:
-        return int(store.ts)
+        with tracing.host_read("api.clock"):
+            return int(store.ts)
 
     # ------------------------------------------------------------- lifecycle
     def grow(self, store, *, leaves: bool = False, versions: bool = False,
@@ -133,7 +135,7 @@ class LocalExecutor:
     # ----------------------------------------------------------------- write
     def apply(self, store, batch: OpBatch, *, light_path: bool = True,
               range_opts: RangeOptions = RangeOptions()):
-        base = int(store.ts) if self.durability is not None else 0
+        base = self.ts(store) if self.durability is not None else 0
         store, values, range_pages = _batch.apply_mixed(
             store, batch.codes, batch.keys, batch.values,
             light_path=light_path, max_results=range_opts.max_results,

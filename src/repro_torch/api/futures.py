@@ -48,6 +48,12 @@ class PendingPlan:
     values: torch.Tensor            # int32 [P] result values (speculative)
     ok: bool                        # accept flag
 
+    @property
+    def plan_id(self) -> int:
+        """The plan id ``repro_torch.tracing`` gave this dispatch (0 when
+        tracing was off); its confirm and a replay of ``batch`` carry it."""
+        return self.batch.plan_id
+
     def rollback_store(self):
         """The pre-plan store: the held reference, or the rejected pass's
         passthrough store with its overflow bits cleared."""

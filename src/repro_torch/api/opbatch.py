@@ -15,6 +15,7 @@ from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.ref import (
     KEY_MAX, NOT_FOUND, TOMBSTONE,
     OP_DELETE, OP_INSERT, OP_NOP, OP_RANGE, OP_SEARCH,
@@ -56,6 +57,9 @@ class OpBatch:
     codes: np.ndarray
     keys: np.ndarray
     values: np.ndarray
+    # the plan id (``repro_torch.tracing``) of the PendingPlan this batch
+    # was dispatched as (0: none), so a replay of the batch carries it
+    plan_id: int = dataclasses.field(default=0, compare=False, repr=False)
 
     @classmethod
     def inserts(cls, keys, values) -> "OpBatch":
@@ -230,10 +234,12 @@ def make_result(
     codes = np.asarray(codes, np.int32)
     n = len(values)
     idx, pages, resumes = [], [], []
-    for pos, page, resume in range_items:
-        idx.append(pos)
-        pages.append(np.asarray(page, np.int32).reshape(-1, 2))
-        resumes.append(resume)
+    if range_items:
+        with tracing.span("pages"):
+            for pos, page, resume in range_items:
+                idx.append(pos)
+                pages.append(np.asarray(page, np.int32).reshape(-1, 2))
+                resumes.append(resume)
     return Result(
         values=values,
         found=(values != NOT_FOUND) & (codes != OP_NOP),

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import lifecycle as LC
 from repro_torch.core import store as S
 from repro_torch.core.ref import KEY_MAX, KEY_MIN, NOT_FOUND, OP_RANGE
@@ -55,12 +56,14 @@ class CapacityError(RuntimeError):
                 store.n_vers.max().long(),
                 torch.tensor(store.ts.numel(), device=store.ts.device)]),
                 gather)
-            n_alloc, live, n_shards = (int(x) for x in
-                                       rows[:, [0, 1, 3]].sum(0).tolist())
+            with tracing.host_read("batch.capacity_error", 2):
+                n_alloc, live, n_shards = (
+                    int(x) for x in rows[:, [0, 1, 3]].sum(0).tolist())
+                n_vers = int(rows[:, 2].max())
             self.occupancy = n_alloc / max(
                 int(store.cfg.max_leaves) * n_shards, 1)
             self.frozen_fraction = (n_alloc - live) / max(n_alloc, 1)
-            self.n_vers = int(rows[:, 2].max())
+            self.n_vers = n_vers
             self.max_versions = int(store.cfg.max_versions)
             message = (
                 f"{message} [oflow={self.oflow:#x} "
@@ -83,6 +86,7 @@ def _bump(stats: Optional[Dict[str, int]], key: str, by: int = 1) -> None:
         stats[key] = stats.get(key, 0) + by
 
 
+@tracing.spanned("batch.round")
 def _apply_rounds(
     store: S.UruvStore,
     codes: np.ndarray,
@@ -119,9 +123,11 @@ def _apply_rounds(
                                       op_ts=op_ts, next_ts=next_ts,
                                       light_path=light_path)
     if ok:
-        return new_store, res.cpu().numpy()
+        with tracing.host_read("batch.results"):
+            return new_store, res.cpu().numpy()
     _bump(stats, "slow_path_rounds")
-    reason = int(new_store.oflow) & ~int(store.oflow)
+    with tracing.host_read("batch.reason", 2):
+        reason = int(new_store.oflow) & ~int(store.oflow)
     again = dict(light_path=light_path, stats=stats, policy=policy,
                  _depth=_depth + 1)
     if reason & S.OFLOW_INDEX:
@@ -140,8 +146,11 @@ def _apply_rounds(
         compacted, _ = S.compact(_clear_oflow(store))
         # progress check on the constrained resources: the version pool
         # and the leaf bump-allocator (compact() resets both)
-        progressed = (int(compacted.n_vers) < int(store.n_vers)
-                      or int(compacted.n_alloc) < int(store.n_alloc))
+        with tracing.host_read("batch.progress", 2):
+            progressed = int(compacted.n_vers) < int(store.n_vers)
+        if not progressed:
+            with tracing.host_read("batch.progress", 2):
+                progressed = int(compacted.n_alloc) < int(store.n_alloc)
         if not progressed and not (reason & S.OFLOW_LEAFBATCH):
             raise CapacityError(
                 f"store full (versions={int(store.n_vers)}/"
@@ -157,7 +166,8 @@ def _apply_rounds(
         raise CapacityError("single op rejected; leaf_cap too small",
                             store=store, oflow=reason)
     if op_ts is None:
-        base = int(store.ts)
+        with tracing.host_read("batch.clock"):
+            base = int(store.ts)
         op_ts = (base + np.arange(len(keys))).astype(np.int32)
         if next_ts is None:
             next_ts = base + len(keys)
@@ -170,6 +180,7 @@ def _apply_rounds(
     return st, np.concatenate([res_a, res_b])
 
 
+@tracing.spanned("batch.apply_mixed")
 def apply_mixed(
     store: S.UruvStore,
     codes: np.ndarray,
@@ -227,7 +238,8 @@ def apply_mixed(
                 scan_leaves=scan_leaves, max_rounds=max_rounds, stats=stats)
     if get_ts_fn is None:
         def get_ts_fn(st):
-            return int(st.ts)
+            with tracing.host_read("batch.clock"):
+                return int(st.ts)
     if set_ts_fn is None:
         def set_ts_fn(st, ts):
             return dataclasses.replace(
@@ -273,6 +285,7 @@ _DONE_LO = KEY_MAX
 _DONE_HI = KEY_MIN
 
 
+@tracing.spanned("batch.range_all")
 def bulk_range_all(
     store: S.UruvStore,
     k1s,
@@ -317,11 +330,14 @@ def bulk_range_all(
                        np.concatenate([lo, np.full(pad, _DONE_LO, np.int32)]),
                        np.concatenate([hi, np.full(pad, _DONE_HI, np.int32)]),
                        np.concatenate([sn, np.zeros(pad, np.int32)]))
-        keys, vals, cnt, trunc, resume = (t.cpu().numpy() for t in page)
+        with tracing.host_read("batch.range_page", len(page)):
+            keys, vals, cnt, trunc, resume = [t.cpu().numpy() for t in page]
         trunc = trunc[: len(idx)]
-        for a, q in enumerate(idx):
-            c = int(cnt[a])
-            out[q].extend(zip(keys[a, :c].tolist(), vals[a, :c].tolist()))
+        with tracing.span("pages"):
+            for a, q in enumerate(idx):
+                c = int(cnt[a])
+                out[q].extend(zip(keys[a, :c].tolist(),
+                                  vals[a, :c].tolist()))
         if not trunc.any():
             break
         act = np.nonzero(trunc)[0]

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import _ops as O
 from repro_torch.core import index as I
 from repro_torch.core import store as S
@@ -132,6 +133,7 @@ def _grow(store: S.UruvStore, *, new_ml: int, new_mv: int,
     )
 
 
+@tracing.spanned("lifecycle.grow")
 def grow(store: S.UruvStore, *, leaves: bool = False, versions: bool = False,
          tracker: bool = False) -> S.UruvStore:
     """Double the selected pools; everything else is bit-exact.
@@ -330,6 +332,7 @@ def _maintain(store: S.UruvStore, phase: int, budget: int):
     return new, store.n_alloc - n_alloc, n_merged
 
 
+@tracing.spanned("lifecycle.maintain")
 def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0,
              gather=None) -> Tuple[S.UruvStore, int, int]:
     """ONE bounded incremental maintenance pass.
@@ -348,13 +351,17 @@ def maintain(store: S.UruvStore, budget: int = 128, *, phase: int = 0,
     """
     if not S.is_stacked(store):
         new, reclaimed, merged = _maintain(store, phase % 2, budget)
-        reclaimed, merged = torch.stack([reclaimed, merged]).tolist()
+        sums = torch.stack([reclaimed, merged])
+        with tracing.host_read("lifecycle.maintain"):
+            reclaimed, merged = sums.tolist()
         return new, reclaimed, merged
     outs = [_maintain(v, phase % 2, budget) for v in S.shard_views(store)]
     new = S.stack_shards([o[0] for o in outs], base=store)
-    reclaimed, merged = across(torch.stack(
+    sums = across(torch.stack(
         [torch.stack([o[1] for o in outs]).sum(),
-         torch.stack([o[2] for o in outs]).sum()]), gather).sum(0).tolist()
+         torch.stack([o[2] for o in outs]).sum()]), gather).sum(0)
+    with tracing.host_read("lifecycle.maintain"):
+        reclaimed, merged = sums.tolist()
     return new, reclaimed, merged
 
 
@@ -436,15 +443,17 @@ def live_key_count(store: S.UruvStore, gather=None) -> int:
     """Keys held by index-referenced leaves (tombstoned keys count until
     maintenance purges them): a pool-occupancy figure."""
     ref = store.index.leaf_ent >= 0
-    return int(across(store.leaf_count[ref].sum().reshape(1),
-                      gather).sum())
+    with tracing.host_read("lifecycle.live_keys", 2):
+        return int(across(store.leaf_count[ref].sum().reshape(1),
+                          gather).sum())
 
 
 def dead_fraction(store: S.UruvStore, gather=None) -> float:
     """Dead (unreferenced-but-allocated) fraction of the leaf pool."""
-    n_alloc, live = across(torch.stack([store.n_alloc.sum(),
-                                        store.n_leaves.sum()]),
-                           gather).sum(0).tolist()
+    sums = across(torch.stack([store.n_alloc.sum(), store.n_leaves.sum()]),
+                  gather).sum(0)
+    with tracing.host_read("lifecycle.dead_fraction"):
+        n_alloc, live = sums.tolist()
     return (n_alloc - live) / max(n_alloc, 1)
 
 
@@ -471,6 +480,7 @@ def run_maintenance(store: S.UruvStore, policy: LifecyclePolicy, *,
     return store
 
 
+@tracing.spanned("lifecycle.tick")
 def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
                    stats: Optional[Dict[str, int]] = None,
                    grow_fn=None, gather=None) -> S.UruvStore:
@@ -484,14 +494,16 @@ def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
         return store
     parts = across(torch.stack([store.n_alloc.sum(), store.n_leaves.sum(),
                                 store.n_alloc.max().long()]), gather)
-    n_alloc, n_leaves, alloc_max = torch.cat(
-        [parts[:, :2].sum(0), parts[:, 2:].amax(0)]).tolist()
+    row = torch.cat([parts[:, :2].sum(0), parts[:, 2:].amax(0)])
+    with tracing.host_read("lifecycle.tick"):
+        n_alloc, n_leaves, alloc_max = row.tolist()
     dead = n_alloc - n_leaves
     if (policy.auto_maintain and dead >= policy.min_dead_leaves
             and dead / max(n_alloc, 1) >= policy.frozen_trigger):
         store = run_maintenance(store, policy, stats=stats, gather=gather)
-        alloc_max = int(across(store.n_alloc.max().reshape(1),
-                               gather).max())
+        top = across(store.n_alloc.max().reshape(1), gather).max()
+        with tracing.host_read("lifecycle.tick"):
+            alloc_max = int(top)
     if (policy.auto_grow
             and alloc_max > policy.grow_occupancy * store.cfg.max_leaves):
         if grow_fn is None:
@@ -503,6 +515,7 @@ def lifecycle_tick(store: S.UruvStore, policy: LifecyclePolicy, *,
     return store
 
 
+@tracing.spanned("lifecycle.relieve")
 def relieve_pressure(store: S.UruvStore, reason: int, width: int,
                      policy: LifecyclePolicy, *,
                      stats: Optional[Dict[str, int]] = None,
@@ -523,7 +536,9 @@ def relieve_pressure(store: S.UruvStore, reason: int, width: int,
         store = S.reindex(store)
     if reason & S.OFLOW_LEAVES:
         def allocated(st):
-            return int(across(st.n_alloc.sum().reshape(1), gather).sum())
+            n = across(st.n_alloc.sum().reshape(1), gather).sum()
+            with tracing.host_read("lifecycle.relieve"):
+                return int(n)
 
         before = allocated(store)
         if dead_fraction(store, gather) >= policy.frozen_trigger:
@@ -538,7 +553,9 @@ def relieve_pressure(store: S.UruvStore, reason: int, width: int,
         cfg = store.cfg
         parts = across(torch.stack([store.n_vers.max().long(),
                                     store.n_vers.sum()]), gather)
-        n_vers, n_vers_sum = int(parts[:, 0].max()), int(parts[:, 1].sum())
+        top, total = parts[:, 0].max(), parts[:, 1].sum()
+        with tracing.host_read("lifecycle.relieve", 2):
+            n_vers, n_vers_sum = int(top), int(total)
         # compact() can reclaim at most sum(n_vers) - live_keys versions
         # (every surviving key keeps >= 1): skip it when that cannot fit
         # the batch
@@ -548,8 +565,9 @@ def relieve_pressure(store: S.UruvStore, reason: int, width: int,
             if stats is not None:
                 stats["compactions"] = stats.get("compactions", 0) + 1
             store, _ = S.compact(store)
-            n_vers = int(across(store.n_vers.max().reshape(1),
-                                gather).max())
+            top = across(store.n_vers.max().reshape(1), gather).max()
+            with tracing.host_read("lifecycle.relieve"):
+                n_vers = int(top)
         while n_vers + width > store.cfg.max_versions:
             store = grow(store, versions=True)
             if stats is not None:

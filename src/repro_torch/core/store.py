@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import _ops as O
 from repro_torch.core import backend as _B
 from repro_torch.core import index as _I
@@ -328,6 +329,7 @@ def _tomb(val: torch.Tensor) -> torch.Tensor:
     return torch.where(val == TOMBSTONE, NOT_FOUND, val)
 
 
+@tracing.spanned("store.bulk_apply")
 def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
                op_ts=None, next_ts=None, light_path: bool = True):
     """Apply a mixed announce array in one pass.
@@ -448,7 +450,9 @@ def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
           vslot)
 
     # host sync 1: the reference's lax.cond on the structural phase
-    pre_overflow_h, n_new_h = torch.stack([pre_overflow, n_new]).tolist()
+    flags = torch.stack([pre_overflow, n_new])
+    with tracing.host_read("store.precheck"):
+        pre_overflow_h, n_new_h = flags.tolist()
     run_struct = pre_overflow_h == 0 and (n_new_h > 0 or not light_path)
     idx_oflow_h = False
     if run_struct:
@@ -457,7 +461,8 @@ def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
                         gold_count=gold_count, gord=gord, cval=cval,
                         gid=gid, goffset=goffset, ckeys=ckeys, cvhead=cvhead,
                         n_splits=n_splits)
-        idx_oflow_h = bool(s["idx_oflow"])        # host sync 2
+        with tracing.host_read("store.index_oflow"):
+            idx_oflow_h = bool(s["idx_oflow"])    # host sync 2
     overflow = pre_overflow_h | (OFLOW_INDEX if idx_oflow_h else 0)
     ok = overflow == 0
 
@@ -488,6 +493,7 @@ def bulk_apply(store: UruvStore, op_codes, keys, values, base_ts=None, *,
     return new_store, results, ok
 
 
+@tracing.spanned("store.structural")
 def _structural(store, vh_buf, base_ts, *, P, L, ML, g_is_real, gleaf,
                 gcount, gold_count, gord, cval, gid, goffset, ckeys, cvhead,
                 n_splits):
@@ -649,6 +655,7 @@ def range_query(store: UruvStore, k1, k2, snap_ts, *,
 # gather + versioned resolve kernel, sort-free per-query compaction
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("store.bulk_range")
 def bulk_range(store: UruvStore, k1, k2, snap_ts, *, max_results: int = 1024,
                scan_leaves: int = 16, max_rounds: int = 8):
     """Batched snapshot range scan: Q intervals [k1, k2] (``k1 > k2`` is
@@ -818,22 +825,18 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
     vhs = torch.where(keep_slot, store.leaf_vhead[order_leaf], -1).reshape(-1)
     N = keys.shape[0]
 
-    # walk each chain up to depth D, collecting retained versions
+    # walk each chain up to depth D: a key keeps its newest versions down
+    # to (and with) the first at or below the floor, at most D of them — a
+    # prefix of its chain, kept_n long
     cur = vhs
     kept_n = torch.zeros(N, dtype=I32, device=dev)
     reached = torch.zeros(N, dtype=torch.bool, device=dev)
-    kept_idx, kept_mask = [], []
     for _ in range(D):
         ok = cur >= 0
         safe = cur.clamp_min(0)
-        keep_this = ok & ~reached
-        kept_idx.append(torch.where(keep_this, cur, -1))
-        kept_mask.append(keep_this)
+        kept_n = kept_n + (ok & ~reached).to(I32)
         reached = reached | (ok & (store.ver_ts[safe] <= floor))
-        kept_n = kept_n + keep_this.to(I32)
         cur = torch.where(ok, store.ver_next[safe], -1)
-    kept_idx = torch.stack(kept_idx, 1)          # [N, D], newest-first
-    kept_mask = torch.stack(kept_mask, 1)
 
     vh0 = vhs.clamp_min(0)
     head_val = torch.where(vhs >= 0, store.ver_value[vh0], NOT_FOUND)
@@ -844,24 +847,26 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
     # compact live keys to the front (already key-sorted in index order)
     corder = torch.sort(torch.where(live, 0, 1).to(I32), stable=True).indices
     ckeys = torch.where(live[corder], keys[corder], KEY_MAX)
-    ckept_idx, ckept_mask = kept_idx[corder], kept_mask[corder]
     n_live = live.sum(dtype=I32)
 
-    # rebuild the version pool: a new slot per retained version
-    flat_keep = ckept_mask.reshape(-1)
-    new_slot_flat = O.cumsum32(flat_keep) - 1
-    new_slot = torch.where(ckept_mask, new_slot_flat.view(N, D), -1)
-    src = ckept_idx.clamp_min(0).reshape(-1)
-    dst = O.lin_1d(torch.where(flat_keep, new_slot_flat, MV), MV)
-    zeros = torch.zeros(MV, dtype=I32, device=dev)
-    ver_value = O.drop_set(zeros, dst, store.ver_value[src])
-    ver_ts = O.drop_set(zeros, dst, store.ver_ts[src])
-    # chain: version j links to version j+1 of the same key (newest-first)
-    nxt_in_key = torch.cat(
-        [new_slot[:, 1:], torch.full((N, 1), -1, dtype=I32, device=dev)],
-        1).reshape(-1)
-    ver_next = O.drop_set(torch.full((MV,), -1, dtype=I32, device=dev), dst,
-                          nxt_in_key)
+    # rebuild the version pool: the key at sorted position r takes slots
+    # base[r] .. base[r] + kept_n - 1, newest first, each linked to the
+    # next; one [N] step a chain depth, so no [N, D] intermediate (at
+    # ML * L * D >= 2^31 elements that overflows the device's indexing)
+    ckept = kept_n[corder]
+    base = O.cumsum32(ckept) - ckept
+    ver = [O.sinked(torch.full((MV,), fill, dtype=I32, device=dev))
+           for fill in (0, 0, -1)]
+    cur = vhs[corder]
+    for j in range(D):
+        safe = cur.clamp_min(0)
+        dst = O.lin_1d(torch.where(ckept > j, base + j, MV), MV)
+        O.put(ver[0], dst, store.ver_value[safe])
+        O.put(ver[1], dst, store.ver_ts[safe])
+        O.put(ver[2], dst, torch.where(ckept > j + 1, base + j + 1, -1))
+        cur = torch.where(cur >= 0, store.ver_next[safe], -1)
+    ver_value, ver_ts, ver_next = (O.unsink(b, (MV,)) for b in ver)
+    new_head = torch.where(ckept > 0, base, -1)
 
     # rebuild packed leaves at pack_fill occupancy
     F = cfg.pack_fill
@@ -872,7 +877,7 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
     leaf_keys = O.drop_set(
         torch.full((ML, L), KEY_MAX, dtype=I32, device=dev), lin, ckeys)
     leaf_vhead = O.drop_set(
-        torch.full((ML, L), -1, dtype=I32, device=dev), lin, new_slot[:, 0])
+        torch.full((ML, L), -1, dtype=I32, device=dev), lin, new_head)
     leaf_count = torch.where(allp < n_new_leaves,
                              (n_live - allp * F).clamp(0, F), 0)
     leaf_next = torch.where(allp + 1 < n_new_leaves, allp + 1, -1)
@@ -894,7 +899,7 @@ def compact(store: UruvStore) -> Tuple[UruvStore, torch.Tensor]:
         leaf_ts=store.ts.expand(ML).clone(),
         n_alloc=n_new_leaves, index=new_index, n_leaves=n_new_leaves.clone(),
         ver_value=ver_value, ver_ts=ver_ts, ver_next=ver_next,
-        n_vers=flat_keep.sum(dtype=I32),
+        n_vers=ckept.sum(dtype=I32),
         oflow=torch.zeros((), dtype=I32, device=dev),
     )
     return new, n_live

@@ -14,12 +14,12 @@ building at once cannot load a half-written file.
 
 Every wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else; a caller resets it to see which kernels a run
-went through.
+went through.  It is the ``launch.`` group of the program's counters
+(``repro_torch.tracing.counters``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -29,6 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+from repro_torch import tracing
+
 SOURCES = ("uruv_search", "versioned_read", "uruv_range", "flash_attention",
            "flash_attention_bwd", "decode_attention")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -36,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-launch_counts: "collections.Counter[str]" = collections.Counter()
+launch_counts = tracing.CounterGroup("launch.")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -59,6 +59,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.api import OP_NOP, OpBatch, Result, Uruv
 
 
@@ -94,15 +95,19 @@ class OpFuture:
     (values / found / per-op timestamps / complete range pages, announce
     positions rebased to the request).  ``submit_t``/``done_t`` (host
     monotonic clock) bracket queueing + batching + execution — the
-    tail-latency harness reads per-op latency off them.
+    tail-latency harness reads per-op latency off them; ``dispatch_t``
+    is when the request's plan was formed (``submit_t`` to ``dispatch_t``
+    is its wait in the queue).
     """
 
-    __slots__ = ("_coalescer", "n_ops", "submit_t", "done_t", "_result")
+    __slots__ = ("_coalescer", "n_ops", "submit_t", "dispatch_t", "done_t",
+                 "_result")
 
     def __init__(self, coalescer: "Coalescer", n_ops: int):
         self._coalescer = coalescer
         self.n_ops = n_ops
         self.submit_t = time.monotonic()
+        self.dispatch_t: Optional[float] = None
         self.done_t: Optional[float] = None
         self._result: Optional[Result] = None
 
@@ -214,6 +219,7 @@ class Coalescer:
                 self.stats["hot_segments"] += 1
 
     # ------------------------------------------------------------------ pump
+    @tracing.spanned("serve.pump")
     def pump(self, force: bool = False, now: Optional[float] = None) -> bool:
         """One admission step: build the next plan from the queue head
         (host work that overlaps the in-flight device pass), settle the
@@ -255,12 +261,19 @@ class Coalescer:
         return take
 
     # -------------------------------------------------------------- dispatch
-    def _dispatch(self, reqs: List[_Queued]) -> None:
+    @tracing.spanned("serve.dispatch")
+    def _form(self, reqs: List[_Queued]):
+        """The plan of ``reqs`` and each request's span in it."""
+        now = time.monotonic()
         spans: List[Tuple[OpFuture, int, int]] = []
         at = 0
         for q in reqs:
+            q.future.dispatch_t = now
             spans.append((q.future, at, at + q.future.n_ops))
             at += q.future.n_ops
+        if tracing.enabled():
+            tracing.note_waits(now - np.fromiter(
+                (q.future.submit_t for q in reqs), np.float64, len(reqs)))
         plan = OpBatch.concat(*[q.plan for q in reqs]).pad_to_pow2()
         self.stats["plans"] += 1
         self.stats["padded_ops"] += len(plan) - at
@@ -268,6 +281,10 @@ class Coalescer:
         self._note_skew(np.asarray(plan.keys), np.asarray(plan.codes))
         if self.dispatch_log is not None:
             self.dispatch_log.append((plan, spans))
+        return spans, plan
+
+    def _dispatch(self, reqs: List[_Queued]) -> None:
+        spans, plan = self._form(reqs)
         if self._pipelined and not any(q.has_range for q in reqs):
             while len(self.inflight) >= self._depth:
                 self._retire_oldest()
@@ -287,6 +304,7 @@ class Coalescer:
         self._materialize(spans, self.db.apply(plan))
         self._adapt(rejected=False)
 
+    @tracing.spanned("serve.retire")
     def _retire_oldest(self) -> None:
         entry = self.inflight.popleft()
         res = self.db.confirm(entry.pending)
@@ -307,6 +325,7 @@ class Coalescer:
             self._materialize(e.spans, self.db.apply(e.pending.batch))
 
     # ------------------------------------------------------------- futures
+    @tracing.spanned("serve.materialize")
     def _materialize(self, spans, res: Result) -> None:
         """Slice the batched Result into per-request Results and resolve
         the futures.  Every field keeps the batch's values verbatim —

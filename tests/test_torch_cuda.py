@@ -609,6 +609,29 @@ def _drive_sharded(dev):
     return res, TS.to_numpy(db.store)
 
 
+def test_compact_walks_two_to_the_31_chain_slots(card):
+    """``compact`` of a store with max_leaves x leaf_cap x max_chain =
+    2^31 chain slots (the benchmark's paper-uniform-5m store after one
+    leaf grow): every live key keeps its newest value."""
+    db = T.Uruv(T.UruvConfig(leaf_cap=64, max_leaves=1 << 19,
+                             max_versions=1 << 16, max_chain=64,
+                             index_fanout=16), device=card)
+    rng = np.random.default_rng(0)
+    keys = rng.choice(np.arange(1, 1 << 24, dtype=np.int32), 4096,
+                      replace=False)
+    expect = {}
+    for _ in range(3):
+        vals = rng.integers(1, 1 << 20, keys.size).astype(np.int32)
+        db.insert(keys, vals)
+        expect.update(zip(keys.tolist(), vals.tolist()))
+    db.delete(keys[:100])
+    for k in keys[:100].tolist():
+        del expect[k]
+    assert db.compact() == len(expect)
+    assert sorted(db.live_items()) == sorted(expect.items())
+    TS.check_invariants(db.store)
+
+
 def test_sharded_client_on_card_equals_cpu(card):
     """The same plans through ``Uruv.sharded`` on the card and on the CPU:
     the same results and counters, bit-equal stacked stores; the store
